@@ -78,6 +78,22 @@ def gold_sequence(c_init: torch.Tensor, length: int) -> torch.Tensor:
     return torch.bitwise_xor(parity_dot(cbits, basis), x1)
 
 
+def np_gold_sequence(c_init: int, length: int) -> np.ndarray:
+    """Host-side straightforward LFSR (int8 {0,1}): the host constants of the
+    control channels (pilots, DM-RS, cyclic-shift tables) are built with it."""
+    n = NC + length
+    x1 = np.zeros(n + 31, dtype=np.uint8)
+    x2 = np.zeros(n + 31, dtype=np.uint8)
+    x1[0] = 1
+    for i in range(31):
+        x2[i] = (c_init >> i) & 1
+    for i in range(n):
+        x1[i + 31] = x1[i + 3] ^ x1[i]
+        x2[i + 31] = x2[i + 3] ^ x2[i + 2] ^ x2[i + 1] ^ x2[i]
+    # int8, so that (1 - 2*c) cannot wrap as uint8 would.
+    return (x1[NC:NC + length] ^ x2[NC:NC + length]).astype(np.int8)
+
+
 def scramble_bits(bits: torch.Tensor, c_init: torch.Tensor) -> torch.Tensor:
     """XOR a {0,1} bit stream (..., N) with per-row Gold sequences."""
     seq = gold_sequence(c_init, bits.shape[-1])

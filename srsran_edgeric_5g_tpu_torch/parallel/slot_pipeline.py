@@ -149,13 +149,17 @@ def _dl_code(payloads: torch.Tensor, rntis: torch.Tensor, cell: CellConfig,
 
 
 def _dl_grid(syms: torch.Tensor, cell: CellConfig,
-             dmrs_scale: float = float(np.sqrt(2.0))) -> torch.Tensor:
+             dmrs_scale: float = float(np.sqrt(2.0)),
+             add_rows: dict[int, torch.Tensor] | None = None) -> torch.Tensor:
     """(..., U, G/Qm) modulated symbols -> (..., nsymb, nsubc) resource grids.
 
     ``dmrs_scale``: DM-RS-to-data amplitude; sqrt(2) is the PUSCH
     convention (TS 38.214 3 dB boost for 2 CDM groups without data, which
-    the reference receiver assumes).  Type-1 port-0 DM-RS on the even
-    subcarriers of the occupied span; all UEs share n_id, so one sequence.
+    the reference receiver assumes), PDSCH passes 1.0.  Type-1 port-0 DM-RS
+    on the even subcarriers of the occupied span; all UEs share n_id, so one
+    sequence.  ``add_rows``: symbol index -> (..., nsubc) contribution added
+    to that symbol's row (control channels on disjoint REs: PDCCH, SSB,
+    CSI-RS).
     """
     t = cell.timing
     u, w = cell.nof_ue, cell.ue_width_sc
@@ -173,6 +177,8 @@ def _dl_grid(syms: torch.Tensor, cell: CellConfig,
     pil = _dmrs_full_band(cell, dev)[:, p0:p0 + span // 2]
     grid[..., list(cell.dmrs_symbols), band0:band0 + span:2] = (
         pil * float(np.float32(dmrs_scale)))
+    for l, row in (add_rows or {}).items():
+        grid[..., l, :] += row.to(torch.complex64)
     return grid
 
 
@@ -246,17 +252,22 @@ def ul_slot(rx_samples, rntis, cell: CellConfig, rv: int = 0,
     return payload[0], tb_ok[0], nv[0], cfo[0], soft[0]
 
 
-def _ul_front(rx_samples: torch.Tensor, rntis: torch.Tensor, cell: CellConfig):
+def _ul_front(rx_samples: torch.Tensor | None, rntis: torch.Tensor,
+              cell: CellConfig, rx_grid: torch.Tensor | None = None):
     """OFDM demod -> chest -> MMSE -> demap -> wire quantise -> descramble:
-    (S, total) samples -> ((S, U, G) LLRs, (S, U) noise_var, (S, U) cfo)."""
+    (S, total) samples -> ((S, U, G) LLRs, (S, U) noise_var, (S, U) cfo).
+    ``rx_grid`` (S, nsymb, nsubc) skips the OFDM demodulation when the
+    caller already demodulated the slots (the full cell shares one grid
+    between PUSCH, PUCCH and SRS)."""
     t = cell.timing
-    s = rx_samples.shape[0]
     u, w = cell.nof_ue, cell.ue_width_sc
     span = u * w
     band0 = cell.first_prb * N_SC_PER_PRB
-    dev = rx_samples.device
 
-    rx_grid = ofdm.demodulate_slot(rx_samples, t, scale=1.0)  # (S, nsymb, nsubc)
+    if rx_grid is None:
+        rx_grid = ofdm.demodulate_slot(rx_samples, t, scale=1.0)
+    s = rx_grid.shape[0]
+    dev = rx_grid.device
     band = rx_grid[..., band0:band0 + span]                   # (S, nsymb, span)
 
     pilots = _dmrs_full_band(cell, dev)

@@ -23,6 +23,9 @@ from srsran_edgeric_5g_tpu_torch.ran import numerology as tnum
 from srsran_edgeric_5g_tpu_torch.ran import tbs as ttbs
 from srsran_edgeric_5g_tpu_torch.utils import bits as tbits
 
+# Six test workers share the host with the JAX tests: two intra-op threads.
+torch.set_num_threads(2)
+
 
 @pytest.mark.parametrize("nof_prb,nfft,mu,slot,ecp", [
     (52, 768, 0, 0, False), (106, 1536, 0, 0, False), (51, 1024, 1, 1, False),

@@ -22,6 +22,9 @@ from srsran_edgeric_5g_tpu_torch.ops.ldpc import encoder as tenc
 from srsran_edgeric_5g_tpu_torch.ops.ldpc import rate_match as trm
 from srsran_edgeric_5g_tpu_torch.ops.ldpc import segmenter as tseg
 
+# Six test workers share the host with the JAX tests: two intra-op threads.
+torch.set_num_threads(2)
+
 
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

@@ -11,9 +11,10 @@ marker and skip elsewhere.  A card's machine need not have JAX, so this
 module imports the JAX package only inside the tests that compare with it,
 and the card tests run without tests/conftest.py (which sets up JAX):
 ``python -m pytest --noconftest -o addopts="" -m cuda
-tests/test_torch_ldpc_kernel.py``.
+tests/test_torch_ldpc_kernel.py tests/test_torch_ldpc_int8.py``.
 """
 
+import fcntl
 import json
 import os
 import subprocess
@@ -28,6 +29,8 @@ from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder_cuda, encoder
 from srsran_edgeric_5g_tpu_torch.ops.ldpc.graph import get_graph
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Six test workers share the host with the JAX tests: two intra-op threads.
+torch.set_num_threads(2)
 
 
 def _noisy_llrs(bg, zc, b, snr_db, seed):
@@ -51,35 +54,85 @@ def _wire(llr):
     return np.clip(np.round(np.clip(llr, -20, 20) * 6.0), -120, 120).astype(np.int8)
 
 
+# The Pallas interpreter runs in a fresh child process (in-process interpret
+# compiles segfault, see tests/test_ldpc_pallas.py), once per test run for
+# both kernels: K1's decode_pallas and K2's decode_pallas_int8 cases.
 _PALLAS_CHILD = r"""
-import json, sys
+import sys
 import numpy as np, jax, jax.numpy as jnp
 jax.config.update("jax_platforms", "cpu")
 from srsran_edgeric_5g_tpu.ops.ldpc import decoder_pallas
-llr = np.load(sys.argv[1])
-hard, ok = decoder_pallas.decode_pallas(jnp.asarray(llr), 2, 128, num_iters=2,
-                                        b_tile=8, interpret=True,
+inp = np.load(sys.argv[1])
+out = {}
+hard, ok = decoder_pallas.decode_pallas(jnp.asarray(inp["f32"]), 2, 128,
+                                        num_iters=2, b_tile=8, interpret=True,
                                         early_stop=False)
-np.savez(sys.argv[2], hard=np.asarray(hard), ok=np.asarray(ok))
+out["f32_hard"], out["f32_ok"] = np.asarray(hard), np.asarray(ok)
+for b_tile, early_stop in INT8_CASES:
+    hard, ok = decoder_pallas.decode_pallas_int8(
+        jnp.asarray(inp["int8"]), 2, 64, num_iters=3, b_tile=b_tile,
+        interpret=True, early_stop=early_stop)
+    out[f"int8_{b_tile}_{int(early_stop)}_hard"] = np.asarray(hard)
+    out[f"int8_{b_tile}_{int(early_stop)}_ok"] = np.asarray(ok)
+np.savez(sys.argv[2], **out)
 """
+# decode_pallas_int8 (BG2, Zc=64, B=16, 3 sweeps) cases run in the child:
+# (b_tile, early_stop).  Without early stop the result does not depend on
+# b_tile, so one tile size stands for both.
+INT8_CASES = ((16, False), (8, True), (16, True))
 
 
-def test_f32_plain_matches_pallas_interpret(tmp_path):
+def int8_reference_input():
+    """(16, 52*64) float32 LLRs: codeblocks 0-7 at 8 dB, 8-15 at 1 dB, so
+    two tiles of 8 stop after different numbers of sweeps."""
+    bg, zc = 2, 64
+    g = get_graph(bg, zc)
+    rng = np.random.default_rng(11)
+    msgs = rng.integers(0, 2, size=(16, g.k), dtype=np.int8)
+    cw = encoder.encode(torch.as_tensor(msgs), bg, zc).numpy()
+    sym = 1 - 2 * cw[:, 2 * zc:].astype(np.float32)
+    sigma = 10 ** (-np.repeat([8.0, 1.0], 8)[:, None] / 20)
+    y = sym + rng.normal(size=sym.shape) * sigma
+    llr = np.concatenate([np.zeros((16, 2 * zc)), 8 * y / sigma ** 2], axis=1)
+    return msgs, llr.astype(np.float32)
+
+
+def pallas_reference(tmp_path_factory):
+    """The child's outputs (an NpzFile), computed once per test run and
+    shared by the xdist workers through a locked file."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    out = root / "pallas_reference.npz"
+    with open(root / "pallas_reference.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            inp = root / "pallas_reference_input.npz"
+            np.savez(inp, f32=_noisy_llrs(2, 128, 8, snr_db=1.0, seed=5)[1],
+                     int8=int8_reference_input()[1])
+            env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": REPO}
+            code = _PALLAS_CHILD.replace("INT8_CASES", repr(INT8_CASES))
+            proc = subprocess.run(
+                [sys.executable, "-c", code, str(inp), str(root / "tmp.npz")],
+                env=env, capture_output=True, text=True, timeout=900, cwd=REPO)
+            assert proc.returncode == 0, proc.stderr[-3000:]
+            os.replace(root / "tmp.npz", out)
+    return np.load(out)
+
+
+@pytest.fixture(scope="module")
+def pallas_ref(tmp_path_factory):
+    return pallas_reference(tmp_path_factory)
+
+
+def test_f32_plain_matches_pallas_interpret(pallas_ref):
     """f32 mode == decode_pallas (Pallas interpreter) at BG2, Zc=128, B=8,
     2 sweeps; bit-exact hard bits and ok."""
     _, llr = _noisy_llrs(2, 128, 8, snr_db=1.0, seed=5)
-    np.save(tmp_path / "llr.npy", llr)
-    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": REPO}
-    proc = subprocess.run(
-        [sys.executable, "-c", _PALLAS_CHILD, str(tmp_path / "llr.npy"),
-         str(tmp_path / "out.npz")],
-        env=env, capture_output=True, text=True, timeout=600, cwd=REPO)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    ref = np.load(tmp_path / "out.npz")
     hard, ok, sweeps = decoder_cuda.decode_layered(
         torch.as_tensor(llr), 2, 128, num_iters=2, wire=False, early_stop=False)
-    np.testing.assert_array_equal(hard.numpy(), ref["hard"])
-    np.testing.assert_array_equal(ok.numpy(), ref["ok"])
+    np.testing.assert_array_equal(hard.numpy(), pallas_ref["f32_hard"])
+    np.testing.assert_array_equal(ok.numpy(), pallas_ref["f32_ok"])
     assert (sweeps.numpy() == 2).all()
 
 
@@ -115,6 +168,38 @@ def test_wire_plain_early_stop_per_codeblock():
         h1, ok1, _ = decoder_cuda.decode_layered(q[i:i + 1], bg, zc, num_iters=n,
                                                  wire=True, early_stop=False)
         np.testing.assert_array_equal(h1.numpy()[0], hard.numpy()[i])
+
+
+def test_wire_early_stop_per_codeblock_matches_batch_rule():
+    """The card's wire_auto early stop is per codeblock (each CTA stops at
+    its own zero syndrome, which decode_layered_plain mirrors); the JAX
+    layered_wire schedule stops the whole batch once every codeword meets
+    parity, so a codeblock that converged early keeps sweeping there.  On
+    192 codeblocks of BG1 Zc=224 wire input (rate 0.5 after puncturing the
+    tail, half at 3.0 dB, half at 2.5 dB, where codeblocks converge after 4,
+    5 or 6 sweeps and some never do) both rules give the same hard bits and
+    the same ok."""
+    import jax.numpy as jnp
+    from srsran_edgeric_5g_tpu.ops.ldpc import decoder as jdec
+    bg, zc, b = 1, 224, 192
+    g = get_graph(bg, zc)
+    rng = np.random.default_rng(21)
+    msgs = rng.integers(0, 2, size=(b, g.k), dtype=np.int8)
+    cw = encoder.encode(torch.as_tensor(msgs), bg, zc).numpy()
+    sym = 1 - 2 * cw[:, 2 * zc:].astype(np.float32)
+    sigma = 10 ** (-np.repeat([3.0, 2.5], b // 2)[:, None] / 20)
+    y = sym + rng.normal(size=sym.shape) * sigma
+    llr = np.concatenate([np.zeros((b, 2 * zc)), 2 * y / sigma ** 2], axis=1)
+    llr[:, 2 * zc + 9504:] = 0          # the main path's E = 9504
+    q = _wire(llr)
+    hj, okj = jdec.decode(jnp.asarray(q.astype(np.float32)), bg, zc,
+                          num_iters=6, schedule="layered_wire", early_stop=True)
+    hard, ok, sweeps = decoder_cuda.decode_layered_plain(
+        torch.as_tensor(q), bg, zc, num_iters=6, wire=True, early_stop=True)
+    assert len(np.unique(sweeps.numpy())) >= 3      # the rules can differ
+    assert not np.asarray(okj).all()                # the batch runs 6 sweeps
+    np.testing.assert_array_equal(hard.numpy(), np.asarray(hj))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(okj))
 
 
 def test_input_checks():

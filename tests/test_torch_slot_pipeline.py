@@ -28,6 +28,8 @@ from srsran_edgeric_5g_tpu_torch import convert
 from srsran_edgeric_5g_tpu_torch.parallel import slot_pipeline as tsp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Six test workers share the host with the JAX tests: two intra-op threads.
+torch.set_num_threads(2)
 S = 2
 RNTIS = (0x4601 + np.arange(4)).astype(np.uint32)
 
@@ -123,8 +125,9 @@ def test_retransmission(loopback):
     rx2 = (td + (rng.normal(size=td.shape) + 1j * rng.normal(size=td.shape))
            * np.sqrt(nv / 2)).astype(np.complex64)
     soft_j = loopback["res_j"][4]
-    res_j = [np.asarray(a) for a in jsp.ul_slot_batch(
-        jnp.asarray(rx2), jnp.asarray(RNTIS), jc, soft_buffer=jnp.asarray(soft_j))]
+    res_j = [np.asarray(a) for a in jax.jit(lambda x, sb: jsp.ul_slot_batch(
+        x, jnp.asarray(RNTIS), jc, soft_buffer=sb))(jnp.asarray(rx2),
+                                                     jnp.asarray(soft_j))]
     soft_t, rntis_t = convert.harq_state_from_numpy(soft_j, RNTIS, device="cpu")
     assert soft_t.dtype == torch.int8 and rntis_t.dtype == torch.int64
     res_t = [r.numpy() for r in tsp.ul_slot_batch(rx2, rntis_t, tc,
@@ -132,7 +135,8 @@ def test_retransmission(loopback):
     np.testing.assert_array_equal(res_t[0], res_j[0])
     np.testing.assert_array_equal(res_t[1], res_j[1])
     assert res_j[1].all()
-    llr_j = np.asarray(jsp._ul_front(jnp.asarray(rx2), jnp.asarray(RNTIS), jc)[0])
+    llr_j = np.asarray(jax.jit(lambda x: jsp._ul_front(
+        x, jnp.asarray(RNTIS), jc)[0])(jnp.asarray(rx2)))
     llr_t = tsp._ul_front(torch.as_tensor(rx2), rntis_t, tc)[0].numpy()
     _carry_close(res_t[4], res_j[4], int((llr_t != llr_j).sum())
                  + int((loopback["llr_t"] != loopback["llr_j"]).sum()))
@@ -144,7 +148,8 @@ def test_single_slot_entry_points():
     pay = rng.integers(0, 2, (4, jc.derived_tbs()), dtype=np.int8)
     td = tsp.dl_slot(pay, RNTIS.astype(np.int64), tc, device="cpu")
     np.testing.assert_allclose(
-        td.numpy(), np.asarray(jsp.dl_slot(jnp.asarray(pay), jnp.asarray(RNTIS), jc)),
+        td.numpy(), np.asarray(jax.jit(lambda p: jsp.dl_slot(
+            p, jnp.asarray(RNTIS), jc))(jnp.asarray(pay))),
         rtol=0, atol=1e-5 * float(td.abs().max()))
     p, ok, nv, cfo, soft = tsp.ul_slot(td, RNTIS.astype(np.int64), tc, device="cpu")
     assert ok.all() and torch.equal(p, torch.as_tensor(pay))

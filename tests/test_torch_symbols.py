@@ -27,6 +27,9 @@ from srsran_edgeric_5g_tpu_torch.ops import modulation as tmod
 from srsran_edgeric_5g_tpu_torch.ops import ofdm as tofdm
 from srsran_edgeric_5g_tpu_torch.ran.numerology import slot_timing
 
+# Six test workers share the host with the JAX tests: two intra-op threads.
+torch.set_num_threads(2)
+
 RTOL = 1e-5
 
 
