@@ -6,7 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. build   — nvcc-build every kernel in srsran_edgeric_5g_tpu_torch/csrc/
-               (one process per source, in parallel); print the card.
+               (one process per source, in parallel); per kernel ptxas's
+               registers, stack and spill bytes, and from cuobjdump -sass its
+               instructions, branch-sync blocks and local-memory accesses.
   2. slice   — the main path: dl_slot_batch then ul_slot_batch at the 20 MHz
                cell (106 PRB, nfft 1536, 4 UEs x 26 PRB, 64QAM r0.5, S = 256
                slots) through 25 dB AWGN; every TB must pass CRC with the
@@ -17,9 +19,12 @@ Phases (any failure exits non-zero):
   4. kernels — each kernel against its plain PyTorch version on the card at
                the main path's decode shape (2048 x 15232, BG1 Zc=224, the
                real decoder input of phase 2) and at BG2 Zc=128, both modes,
-               fixed sweeps and early stop: equal hard bits, ok, sweeps.
+               and at BG2 Zc=40 (wire mode only), fixed sweeps and early
+               stop: equal hard bits, ok, sweeps.
   5. timing  — the DL+UL step chained over TIMED_STEPS steps; a per-stage
-               breakdown; the kernel alone, its plain version, its bound.
+               breakdown; the kernel alone (early stop, and fixed 0, 1 and 6
+               sweeps: the slope is the cost of a sweep), its resident CTAs
+               per SM, its plain version, its bound.
   6. full_cell — the full gNB slot (bench.py's bench_full_cell) at
                FullCellConfig() (20 MHz, 106 PRB, 4 UEs, 64QAM) and S = 256:
                UE UL generated once, 25 dB AWGN, one DL+UL step with the
@@ -48,6 +53,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -86,9 +93,9 @@ def awgn(td, snr_db, gen):
     """Complex AWGN at ``snr_db`` below the mean sample power."""
     import torch
     sigma = torch.sqrt(td.abs().pow(2).mean() * 10.0 ** (-snr_db / 10.0) / 2.0)
-    re = torch.randn(td.shape, generator=gen, device=td.device)
-    im = torch.randn(td.shape, generator=gen, device=td.device)
-    return torch.complex(re, im) * sigma
+    real = torch.randn(td.shape, generator=gen, device=td.device)
+    imag = torch.randn(td.shape, generator=gen, device=td.device)
+    return torch.complex(real, imag) * sigma
 
 
 def phase_slice(sp, cuda_build, dev, s_batch):
@@ -200,9 +207,13 @@ def phase_kernels(sp, dec, encoder, dev, ctx):
     ctx["decoder_input"] = full
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     bg2_f32, bg2_wire = synthetic_wire(encoder, dev, 2, 128, full.shape[0], 1.5, gen)
+    # A lifting size under 64, which only wire mode takes (TBS 288 gives
+    # BG2 Zc = 40), at the main path's batch.
+    _, small_wire = synthetic_wire(encoder, dev, 2, 40, full.shape[0], 1.5, gen)
     cases = [(f"BG{seg.bg} Zc={seg.zc}", seg.bg, seg.zc,
               {True: full, False: (full.float() / 6.0).contiguous()}),
-             ("BG2 Zc=128", 2, 128, {True: bg2_wire, False: bg2_f32})]
+             ("BG2 Zc=128", 2, 128, {True: bg2_wire, False: bg2_f32}),
+             ("BG2 Zc=40", 2, 40, {True: small_wire})]
     max_err = 0
     for name, bg, zc, inputs in cases:
         for wire, x in inputs.items():
@@ -296,8 +307,11 @@ def phase_timing(sp, dec, dev, ctx):
                                       early_stop=True)
     ms = cuda_ms(lambda: dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
                                             early_stop=True), 20)
-    ms_fixed = cuda_ms(lambda: dec.decode_layered(full, bg, zc, NUM_ITERS,
-                                                  wire=True, early_stop=False), 10)
+    # Fixed 0, 1 and 6 sweeps: 0 is load, syndrome and store alone; the
+    # slope is the cost of one sweep.
+    fixed = {n: cuda_ms(lambda n=n: dec.decode_layered(full, bg, zc, n, wire=True,
+                                                       early_stop=False), 10)
+             for n in (0, 1, NUM_ITERS)}
     f32_in = (full.float() / 6.0).contiguous()
     ms_f32 = cuda_ms(lambda: dec.decode_layered(f32_in, bg, zc, NUM_ITERS,
                                                 wire=False, early_stop=False), 5)
@@ -306,9 +320,13 @@ def phase_timing(sp, dec, dev, ctx):
     total_sweeps = int(sweeps.sum())
     n_bytes = full.numel() + full.shape[0] * (g.kb * zc + 1 + 4)
     bound_ms, bound_by = kernel_bound(g, zc, total_sweeps, n_bytes)
+    blocks = {m: dec.blocks_per_sm(mode, bg, zc) for m, mode in
+              (("f32", dec.MODE_F32), ("wire", dec.MODE_WIRE), ("int8", dec.MODE_INT8))}
     emit("kernel_time", kernel="ldpc_layered", codeblocks=full.shape[0],
+         blocks_per_sm=blocks,
          sweeps_total=total_sweeps, mean_sweeps=total_sweeps / full.shape[0],
-         wire_early_stop_ms=ms, wire_fixed_6_ms=ms_fixed, f32_fixed_6_ms=ms_f32,
+         wire_early_stop_ms=ms, wire_fixed_0_ms=fixed[0], wire_fixed_1_ms=fixed[1],
+         wire_fixed_6_ms=fixed[NUM_ITERS], f32_fixed_6_ms=ms_f32,
          plain_wire_early_stop_ms=plain_ms, bytes=n_bytes, bound_ms=bound_ms,
          bound_by=bound_by)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
@@ -549,6 +567,58 @@ def phase_kernel_int8(dec, encoder, cuda_build, dev, full):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+KERNEL_NAME = re.compile(r"(layered_kernel|int8_tiled_sweep_kernel)(?:ILi(\d)E)?")
+
+
+def kernel_name(line: str):
+    """layered_kernel<M> (M: 0 f32, 1 wire, 2 int8) or int8_tiled_sweep_kernel
+    from a line naming a mangled kernel, else None."""
+    m = KERNEL_NAME.search(line)
+    return m and m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def ptxas_summary(log: str) -> dict:
+    """ptxas -v's registers, stack frame and spill bytes per kernel of one
+    build log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln and kernel_name(ln):
+            name = kernel_name(ln)
+            out[name] = {}
+        elif name and "stack frame" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[name].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif name and "registers" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
+
+
+def sass_summary(library: str) -> dict:
+    """Per kernel of a built library, from ``cuobjdump -sass``: SASS
+    instructions, branch-synchronisation blocks (BSSY), local-memory accesses
+    (LDL/STL) and barriers (BAR).  Empty where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    out, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = kernel_name(ln)
+            if name:
+                out[name] = dict(instructions=0, bssy=0, local=0, bar=0)
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln):
+            op = ln.split("*/", 1)[1].split()
+            op = (op[1] if op and op[0].startswith("@") else op[0]) if op else ""
+            out[name]["instructions"] += 1
+            out[name]["bssy"] += op.startswith("BSSY")
+            out[name]["local"] += op.startswith(("LDL", "STL"))
+            out[name]["bar"] += op.startswith("BAR")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -573,10 +643,10 @@ def main() -> int:
     cuda_build.build_all()
     for name in cuda_build.KERNELS:
         cuda_build.load(name)
-    regs = [ln.strip() for log in cuda_build.BUILD_LOGS.values()
-            for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     emit("build", seconds=time.perf_counter() - t0, kernels=list(cuda_build.KERNELS),
-         ptxas=regs, torch=torch.__version__, cuda=torch.version.cuda)
+         ptxas=[ptxas_summary(log) for log in cuda_build.BUILD_LOGS.values()],
+         sass=[sass_summary(str(cuda_build.build(n))) for n in cuda_build.KERNELS],
+         torch=torch.__version__, cuda=torch.version.cuda)
 
     ctx = phase_slice(sp, cuda_build, dev, S_BATCH)
     check(ctx["launches"].get(decoder_cuda.KERNEL, 0) > 0,

@@ -3,15 +3,17 @@
 Port of the two Pallas TPU kernels of ``srsran_edgeric_5g_tpu/ops/ldpc/
 decoder_pallas.py``: K1 ``decode_pallas`` and K2 ``decode_pallas_int8``.
 The kernel is ``csrc/ldpc_layered.cu`` (one CTA per codeblock, Zc lanes on
-the thread axis, the posterior in shared memory; its header says what
-bounds it).  ``decode_layered`` (K1) has two modes:
+the thread axis, rows specialised by degree, the posterior and the
+compressed check-to-variable messages in shared memory, a bit-packed
+syndrome; its header says what bounds it).  ``decode_layered`` (K1) has two
+modes:
 
   * f32 (``wire=False``): ``decode_pallas``'s normalised min-sum
     (α = 0.8, hard bits ``post < 0``), which ``decode(schedule="pallas")``
-    computes;
+    computes; Zc >= ``MIN_ZC`` on the card, as ``decode_pallas`` asserts;
   * wire (``wire=True``): the reference's ``layered_wire`` semantics on int8
     wire-domain input, which the main path's ``decode(schedule="wire_auto")``
-    computes.
+    computes, at every NR lifting size.
 
 ``decode_int8`` (K2) is ``decode_pallas_int8``: int8 input, int16
 posterior, int8 messages, 13/16 normalisation, with its tile early exit
@@ -43,13 +45,22 @@ KERNEL = "ldpc_layered"         # K1's launch counter (and the library)
 KERNEL_INT8 = "ldpc_int8"       # K2's launch counter
 MODE_F32, MODE_WIRE, MODE_INT8 = 0, 1, 2   # the kernel's template modes
 INT8_CLAMP = 120  # decoder_pallas.LLR_CLAMP: K2's message clip
-MIN_ZC = 64      # decoder_pallas.MIN_ZC: the kernel's lifting-size floor
+MIN_ZC = 64      # decoder_pallas.MIN_ZC: the f32 and int8 modes' Zc floor
 MAX_ZC = 384     # largest NR lifting size (one thread per lane)
-MAX_DEG = 19     # kMaxDeg in csrc/ldpc_layered.cu
+# Row degrees the kernel has a row routine for (the switch in sweep<M>):
+# BG1 {3..10, 19}, BG2 {3, 4, 5, 6, 8, 10}.
+ROW_DEGREES = frozenset({3, 4, 5, 6, 7, 8, 9, 10, 19})
+SMALL_DEG = 11   # kSmallDeg: rows above it keep sm2 in an extra byte
+# Wire mode on the card: |R| <= 120 * scaling must stay within ±120 (the
+# kernel's promotion sum relies on it, see kFrozen in csrc/ldpc_layered.cu).
+MAX_WIRE_SCALING = 1.0
 
 
-def cuda_supported(zc: int) -> bool:
-    return MIN_ZC <= zc <= MAX_ZC
+def cuda_supported(zc: int, mode: int) -> bool:
+    """Whether the kernel takes lifting size ``zc`` in ``mode``: wire mode
+    every NR lifting size, f32 and int8 Zc >= MIN_ZC (the floor that
+    ``decode_pallas`` and ``decode_pallas_int8`` assert)."""
+    return (1 if mode == MODE_WIRE else MIN_ZC) <= zc <= MAX_ZC
 
 
 def _check_input(llrs: torch.Tensor, bg: int, zc: int, wire: bool) -> None:
@@ -83,16 +94,32 @@ def decode_layered(llrs: torch.Tensor, bg: int, zc: int,
     return out
 
 
-def _check_cuda(llrs: torch.Tensor, bg: int, zc: int) -> None:
+def _check_cuda(llrs: torch.Tensor, bg: int, zc: int, mode: int,
+                scaling: float) -> None:
     if llrs.device.type != "cuda":
         raise ValueError(f"no {KERNEL} kernel for device {llrs.device}")
-    if not cuda_supported(zc):
-        raise ValueError(f"{KERNEL} takes {MIN_ZC} <= Zc <= {MAX_ZC}, got {zc}")
+    if not cuda_supported(zc, mode):
+        raise ValueError(f"{KERNEL} mode {mode} takes Zc <= {MAX_ZC}, and "
+                         f"Zc >= {MIN_ZC} outside wire mode; got {zc}")
     if not llrs.is_contiguous():
         raise ValueError("LLRs must be contiguous")
-    if get_graph(bg, zc).max_row_degree() > MAX_DEG:
-        raise ValueError(f"row degree {get_graph(bg, zc).max_row_degree()} > "
-                         f"{MAX_DEG}")
+    degrees = set(_row_degrees(bg, zc))
+    if not degrees <= ROW_DEGREES:
+        raise ValueError(f"row degrees {sorted(degrees - ROW_DEGREES)} have no "
+                         "row routine in the kernel")
+    if mode == MODE_WIRE and not 0.0 <= scaling <= MAX_WIRE_SCALING:
+        raise ValueError(f"wire mode takes 0 <= scaling <= {MAX_WIRE_SCALING} "
+                         f"on the card, got {scaling}")
+
+
+def _row_degrees(bg: int, zc: int) -> np.ndarray:
+    g = get_graph(bg, zc)
+    return np.bincount(g.edge_row, minlength=g.rows)
+
+
+def _n_big(bg: int, zc: int) -> int:
+    """Rows whose compressed R keeps sm2 in an extra byte."""
+    return int((_row_degrees(bg, zc) > SMALL_DEG).sum())
 
 
 def _launch(llrs, mode, bg, zc, num_iters, scaling, early_stop, b_tile=1):
@@ -100,42 +127,43 @@ def _launch(llrs, mode, bg, zc, num_iters, scaling, early_stop, b_tile=1):
     launch, per-codeblock exit), or for K2 with ``early_stop`` and
     ``b_tile`` > 1 the tiled path (one launch per sweep, per-tile exit).
     Returns (hard, ok, sweeps)."""
-    _check_cuda(llrs, bg, zc)
+    _check_cuda(llrs, bg, zc, mode, scaling)
     g = get_graph(bg, zc)
     dev = llrs.device
     b = llrs.shape[0]
-    row_start, edge_col, edge_shift = _edge_tables(bg, zc, dev)
-    tables = (row_start.data_ptr(), edge_col.data_ptr(), edge_shift.data_ptr())
+    tables = tuple(t.data_ptr() for t in _edge_tables(bg, zc, dev))
     hard = torch.empty((b, g.kb * zc), dtype=torch.int8, device=dev)
     ok = torch.empty((b,), dtype=torch.bool, device=dev)
     sweeps = torch.empty((b,), dtype=torch.int32, device=dev)
-    shape = (b, g.rows, g.cols, g.kb, g.num_edges, zc, num_iters)
+    n_big = _n_big(bg, zc)
+    graph = (g.rows, g.cols, g.kb, g.num_edges, n_big, zc)
     scale = (float(np.float32(scaling)), int(scaling * 65536))
     lib = _library()
     tiled = mode == MODE_INT8 and early_stop and b_tile > 1 and num_iters > 0
+    # Compressed R in device memory: the f32 mode's and the tiled path's.
+    r_state = (torch.empty((b, lib.ldpc_layered_state_bytes(mode, g.rows, n_big,
+                                                             zc)),
+                           dtype=torch.uint8, device=dev)
+               if tiled or mode == MODE_F32 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if tiled:
             l_state = torch.empty((b, g.cols * zc), dtype=torch.int16, device=dev)
-            r_state = torch.empty((b, g.num_edges, zc), dtype=torch.int8,
-                                  device=dev)
             viol = torch.zeros((num_iters, b // b_tile), dtype=torch.int32,
                                device=dev)
             rc = lib.ldpc_int8_decode_tiled(
                 llrs.data_ptr(), l_state.data_ptr(), r_state.data_ptr(),
                 viol.data_ptr(), hard.data_ptr(), ok.data_ptr(),
-                sweeps.data_ptr(), *tables, *shape, b_tile, stream)
+                sweeps.data_ptr(), *tables, b, *graph, num_iters, b_tile, stream)
         else:
-            r_scratch = (torch.empty((b, g.num_edges, zc), dtype=torch.float32,
-                                     device=dev) if mode == MODE_F32 else None)
             rc = lib.ldpc_layered_decode(
                 llrs.data_ptr(), mode, hard.data_ptr(), ok.data_ptr(),
                 sweeps.data_ptr(),
-                0 if r_scratch is None else r_scratch.data_ptr(), *tables,
-                *shape, *scale, int(early_stop), stream)
+                0 if r_state is None else r_state.data_ptr(), *tables,
+                b, *graph, num_iters, *scale, int(early_stop), stream)
     if rc != 0:
         smem = lib.ldpc_layered_smem_bytes(mode, g.rows, g.cols, g.num_edges,
-                                           zc)
+                                           n_big, zc)
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {rc} (mode "
                            f"{mode}, BG{bg} Zc={zc}, {smem} B shared memory "
                            f"per block{', tiled' if tiled else ''})")
@@ -145,27 +173,56 @@ def _launch(llrs, mode, bg, zc, num_iters, scaling, early_stop, b_tile=1):
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load(KERNEL)
-    lib.ldpc_layered_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.ldpc_layered_smem_bytes.restype = ctypes.c_size_t
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ldpc_layered_smem_bytes.argtypes = [i32] * 6
+    lib.ldpc_layered_smem_bytes.restype = ctypes.c_size_t
+    lib.ldpc_layered_state_bytes.argtypes = [i32] * 4
+    lib.ldpc_layered_state_bytes.restype = ctypes.c_size_t
+    lib.ldpc_layered_blocks_per_sm.argtypes = [i32] * 6
+    lib.ldpc_layered_blocks_per_sm.restype = i32
     lib.ldpc_layered_decode.argtypes = (
-        [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
-        + [i32] * 7 + [ctypes.c_float, i32, i32, ptr])
-    lib.ldpc_layered_decode.restype = ctypes.c_int
-    lib.ldpc_int8_decode_tiled.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
-    lib.ldpc_int8_decode_tiled.restype = ctypes.c_int
+        [ptr, i32] + [ptr] * 8 + [i32] * 8 + [ctypes.c_float, i32, i32, ptr])
+    lib.ldpc_layered_decode.restype = i32
+    lib.ldpc_int8_decode_tiled.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
+    lib.ldpc_int8_decode_tiled.restype = i32
     return lib
+
+
+def blocks_per_sm(mode: int, bg: int, zc: int) -> int:
+    """CTAs of the fused path that the current card keeps resident per SM
+    (the occupancy calculator's answer for this shape)."""
+    g = get_graph(bg, zc)
+    return _library().ldpc_layered_blocks_per_sm(mode, g.rows, g.cols,
+                                                 g.num_edges, _n_big(bg, zc), zc)
 
 
 @functools.lru_cache(maxsize=None)
 def _edge_tables(bg: int, zc: int, device: torch.device):
-    """(row_start (rows+1,), edge_col (E,), edge_shift (E,)) int32 on device;
-    edges row-major, columns ascending within a row."""
+    """(row_start (rows+1,), row_sync (rows,), edge_col (E,), edge_shift
+    (E,)) int32 on device; edges row-major, columns ascending within a row.
+    row_sync marks the rows the kernel ends with a barrier (``row_barriers``)."""
     g = get_graph(bg, zc)
-    row_start = np.concatenate([[0], np.cumsum(np.bincount(g.edge_row,
-                                                           minlength=g.rows))])
+    row_start = np.concatenate([[0], np.cumsum(_row_degrees(bg, zc))])
     return tuple(torch.as_tensor(x.astype(np.int32), device=device)
-                 for x in (row_start, g.edge_col, g.edge_shift))
+                 for x in (row_start, row_barriers(bg, zc), g.edge_col,
+                           g.edge_shift))
+
+
+def row_barriers(bg: int, zc: int) -> np.ndarray:
+    """(rows,) 1 where the kernel needs a barrier after a row: the next row
+    shares a column with a row processed since the last barrier (so a
+    thread may read what another wrote), and after the last row.  Rows
+    between two barriers touch disjoint columns (BG1: 32 barriers of 46)."""
+    g = get_graph(bg, zc)
+    cols = [set(g.edge_col[g.edge_row == r].tolist()) for r in range(g.rows)]
+    sync = np.zeros(g.rows, dtype=np.int32)
+    dirty: set = set()
+    for r in range(g.rows):
+        dirty |= cols[r]
+        if r == g.rows - 1 or cols[r + 1] & dirty:
+            sync[r] = 1
+            dirty = set()
+    return sync
 
 
 def decode_layered_plain(llrs: torch.Tensor, bg: int, zc: int,
@@ -204,6 +261,77 @@ def decode_layered_plain(llrs: torch.Tensor, bg: int, zc: int,
         active = active[~done]
     hard = hard_decision(l, strict)
     return hard[:, :plan.kb * zc], check_parity(hard, bg, zc), sweeps
+
+
+def pack_messages(r_msgs: torch.Tensor, bg: int, zc: int, mode: int):
+    """The compressed form in which the kernel keeps R (``RowR`` in
+    csrc/ldpc_layered.cu), in plain PyTorch: per-edge messages (B, rows,
+    max_deg, Zc) -> (words (B, rows * row_words, Zc) int64 holding the 32-bit
+    words, sm2 bytes (B, rows of degree > SMALL_DEG, Zc) int64).
+
+    Every message of a min-sum row is ±sm1 but the first minimum's, ±sm2 >=
+    sm1, so the row keeps sm1 = min |R|, sm2 = max |R|, amin = the first
+    index of the largest |R| and one sign bit per edge (``signbit``, so a
+    float -0.0 keeps its sign).  Integer modes: one word per row, ``flips |
+    amin << 11 | sm2 << 16 | sm1 << 24``, or for a row of degree > SMALL_DEG
+    ``flips | amin << 19 | sm1 << 24`` and sm2 in a byte; f32: three words,
+    ``flips | amin << 24``, sm1 and sm2 as float32 bits."""
+    b = r_msgs.shape[0]
+    words, big = [], []
+    for r, d in enumerate(_row_degrees(bg, zc).tolist()):
+        m = r_msgs[:, r, :d]
+        mag = m.abs()
+        sm1, sm2 = mag.amin(dim=1), mag.amax(dim=1)
+        amin = mag.argmax(dim=1).to(torch.int64)
+        bit = torch.signbit(m).to(torch.int64) << torch.arange(d).reshape(1, d, 1)
+        flips = bit.sum(dim=1)
+        if mode == MODE_F32:
+            words += [flips | amin << 24,
+                      *(x.to(torch.float32).view(torch.int32).to(torch.int64)
+                        & 0xffffffff for x in (sm1, sm2))]
+            continue
+        sm1, sm2 = sm1.to(torch.int64), sm2.to(torch.int64)
+        if int(torch.maximum(sm1, sm2).max()) > 255:
+            raise ValueError("a scaled magnitude does not fit its byte")
+        if d <= SMALL_DEG:
+            words.append(flips | amin << 11 | sm2 << 16 | sm1 << 24)
+        else:
+            words.append(flips | amin << 19 | sm1 << 24)
+            big.append(sm2)
+    empty = r_msgs.new_zeros((b, 0, zc), dtype=torch.int64)
+    return (torch.stack(words, 1),
+            torch.stack(big, 1) if big else empty)
+
+
+def unpack_messages(words: torch.Tensor, big: torch.Tensor, bg: int, zc: int,
+                    mode: int, dtype: torch.dtype) -> torch.Tensor:
+    """``pack_messages``' inverse: the per-edge messages (B, rows, max_deg,
+    Zc) of ``dtype``, R_j = (sign bit j ? -1 : 1) * (j == amin ? sm2 : sm1),
+    zero past each row's degree."""
+    degrees = _row_degrees(bg, zc).tolist()
+    b = words.shape[0]
+    out = torch.zeros((b, len(degrees), max(degrees), zc), dtype=dtype)
+    n_big = 0
+    for r, d in enumerate(degrees):
+        if mode == MODE_F32:
+            w, sm1, sm2 = (words[:, 3 * r + k] for k in range(3))
+            sm1, sm2 = ((x & 0xffffffff).to(torch.int32).view(torch.float32)
+                        for x in (sm1, sm2))
+            flips, amin = w & 0xffffff, w >> 24
+        else:
+            w = words[:, r]
+            if d <= SMALL_DEG:
+                flips, amin = w & 0x7ff, (w >> 11) & 31
+                sm2, sm1 = (w >> 16) & 255, w >> 24
+            else:
+                flips, amin, sm1 = w & 0x7ffff, (w >> 19) & 31, w >> 24
+                sm2 = big[:, n_big]
+                n_big += 1
+        j = torch.arange(d).reshape(1, d, 1)
+        mag = torch.where(j == amin[:, None], sm2[:, None], sm1[:, None]
+                          ).to(dtype)
+        out[:, r, :d] = torch.where(((flips[:, None] >> j) & 1) == 1, -mag, mag)
+    return out
 
 
 def _int8_input(llrs: torch.Tensor, bg: int, zc: int, b_tile: int

@@ -25,8 +25,8 @@ import pytest
 import torch
 
 from srsran_edgeric_5g_tpu_torch import cuda_build
-from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder_cuda, encoder
-from srsran_edgeric_5g_tpu_torch.ops.ldpc.graph import get_graph
+from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder, decoder_cuda, encoder
+from srsran_edgeric_5g_tpu_torch.ops.ldpc.graph import get_graph, lifting_sizes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Six test workers share the host with the JAX tests: two intra-op threads.
@@ -136,9 +136,11 @@ def test_f32_plain_matches_pallas_interpret(pallas_ref):
     assert (sweeps.numpy() == 2).all()
 
 
-@pytest.mark.parametrize("bg,zc", [(1, 64), (2, 128), (1, 224)])
+@pytest.mark.parametrize("bg,zc", [(1, 64), (2, 128), (1, 224), (2, 2), (1, 15),
+                                   (2, 36), (1, 52)])
 def test_wire_plain_matches_layered_wire(bg, zc):
-    """Wire mode == layered_wire with fixed sweeps: bit-exact."""
+    """Wire mode == layered_wire with fixed sweeps: bit-exact, also at the
+    lifting sizes under 64 that wire mode takes on the card."""
     import jax.numpy as jnp
     from srsran_edgeric_5g_tpu.ops.ldpc import decoder as jdec
     _, llr = _noisy_llrs(bg, zc, 3, snr_db=0.5, seed=bg * 100 + zc)
@@ -202,6 +204,83 @@ def test_wire_early_stop_per_codeblock_matches_batch_rule():
     np.testing.assert_array_equal(ok.numpy(), np.asarray(okj))
 
 
+def test_cuda_support_rule():
+    """The card takes every NR lifting size in wire mode and keeps
+    decode_pallas' Zc >= 64 floor for the f32 and int8 modes; every row
+    degree of both base graphs has a row routine."""
+    for zc in lifting_sizes():
+        assert decoder_cuda.cuda_supported(zc, decoder_cuda.MODE_WIRE)
+        for mode in (decoder_cuda.MODE_F32, decoder_cuda.MODE_INT8):
+            assert decoder_cuda.cuda_supported(zc, mode) == (zc >= 64)
+        for bg in (1, 2):
+            assert set(decoder_cuda._row_degrees(bg, zc)) <= decoder_cuda.ROW_DEGREES
+    assert not decoder_cuda.cuda_supported(385, decoder_cuda.MODE_WIRE)
+
+
+@pytest.mark.parametrize("bg", [1, 2])
+def test_row_barriers_separate_rows_sharing_a_column(bg):
+    """The kernel skips the barrier between rows with no column in common:
+    every row that shares a column with a row since the last barrier comes
+    after a barrier, the last row ends with one, and rows are skipped."""
+    g = get_graph(bg, 224)
+    sync = decoder_cuda.row_barriers(bg, 224)
+    cols = [set(g.edge_col[g.edge_row == r].tolist()) for r in range(g.rows)]
+    assert sync[-1] == 1 and 0 < sync.sum() < g.rows
+    since = set()
+    for r in range(g.rows):
+        assert not cols[r] & since
+        since = set() if sync[r] else since | cols[r]
+    assert np.array_equal(sync, decoder_cuda.row_barriers(bg, 40))
+
+
+@pytest.mark.parametrize("bg,zc", [(1, 224), (2, 40)])
+def test_wire_posterior_stays_int8(bg, zc):
+    """The kernel stores wire-mode L as int8: the plain wire decode keeps
+    every posterior an integer within ±127 after every sweep, on noisy input
+    at 0-3 dB and on inputs saturated at the ±64 load clamp."""
+    g = get_graph(bg, zc)
+    plan = decoder.get_decode_plan(bg, zc)
+    rng = np.random.default_rng(zc)
+    inputs = [_wire(_noisy_llrs(bg, zc, 2, snr_db=snr, seed=zc + i)[1])
+              for i, snr in enumerate((0.0, 1.0, 2.0, 3.0))]
+    inputs.append(np.where(rng.random((4, g.n_full)) < 0.5, 64, -64).astype(np.int8))
+    for q in inputs:
+        l, r_msgs = decoder.init_state(torch.as_tensor(q), plan, True)
+        for _ in range(6):
+            decoder.sweep(l, r_msgs, bg, zc, decoder.DEFAULT_SCALING, True)
+            assert float(l.abs().max()) <= 127
+            assert torch.equal(l, l.round())
+
+
+@pytest.mark.parametrize("mode", [decoder_cuda.MODE_WIRE, decoder_cuda.MODE_F32,
+                                  decoder_cuda.MODE_INT8])
+@pytest.mark.parametrize("bg,zc", [(1, 64), (2, 40)])
+def test_compressed_messages_round_trip(bg, zc, mode):
+    """The compressed per-row form of R that the kernel keeps (two scaled
+    magnitudes, the first minimum's index, a sign bit per edge) rebuilds the
+    per-edge messages of the plain decoders exactly after three sweeps:
+    decode_layered_plain's wire and f32 modes and decode_int8_plain."""
+    plan = decoder.get_decode_plan(bg, zc)
+    _, llr = _noisy_llrs(bg, zc, 3, snr_db=0.5, seed=7 * zc)
+    if mode == decoder_cuda.MODE_INT8:
+        l = torch.as_tensor(np.clip(np.round(llr * 4), -127, 127)).to(torch.int16)
+        r_msgs = torch.zeros((3, plan.rows, plan.max_deg, zc), dtype=torch.int8)
+        for _ in range(3):
+            decoder_cuda._sweep_int8(l, r_msgs, bg, zc)
+    else:
+        wire = mode == decoder_cuda.MODE_WIRE
+        l, r_msgs = decoder.init_state(
+            torch.as_tensor(_wire(llr) if wire else llr), plan, wire)
+        for _ in range(3):
+            decoder.sweep(l, r_msgs, bg, zc, decoder.DEFAULT_SCALING, wire)
+    words, big = decoder_cuda.pack_messages(r_msgs, bg, zc, mode)
+    assert int(words.max()) < 1 << 32 and int(words.min()) >= 0
+    back = decoder_cuda.unpack_messages(words, big, bg, zc, mode, r_msgs.dtype)
+    if mode == decoder_cuda.MODE_F32:      # bit for bit, -0.0 included
+        back, r_msgs = back.view(torch.int32), r_msgs.view(torch.int32)
+    assert torch.equal(back, r_msgs)
+
+
 def test_input_checks():
     q = torch.zeros((2, get_graph(2, 128).n_full), dtype=torch.int8)
     with pytest.raises(TypeError):
@@ -258,3 +337,42 @@ def test_kernel_matches_plain(cuda_device, bg, zc, b, wire, early_stop):
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early_stop", [False, True])
+@pytest.mark.parametrize("zc", lifting_sizes())
+@pytest.mark.parametrize("bg", [1, 2])
+def test_wire_kernel_matches_plain_every_lifting_size(cuda_device, bg, zc,
+                                                      early_stop):
+    """Wire mode on the card at every NR lifting size of both base graphs
+    (whole warps with idle lanes when Zc is not a multiple of 32, unaligned
+    rows below 16 bytes): the kernel == its plain version, 5 sweeps."""
+    _, llr = _noisy_llrs(bg, zc, 4, snr_db=1.0, seed=bg * 1000 + zc)
+    x = torch.as_tensor(_wire(llr), device=cuda_device)
+    got = decoder_cuda.decode_layered(x, bg, zc, num_iters=5, wire=True,
+                                      early_stop=early_stop)
+    want = decoder_cuda.decode_layered_plain(x, bg, zc, num_iters=5, wire=True,
+                                             early_stop=early_stop)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bg,zc", [(2, 40), (1, 15), (2, 2)])
+def test_wire_auto_small_lifting_size_on_card(cuda_device, bg, zc):
+    """decode(schedule="wire_auto") on a CUDA tensor decodes at Zc < 64,
+    bit-equal to its plain twin on the CPU (per-codeblock early stop); the
+    f32 mode and K2 keep the Zc >= 64 floor and raise."""
+    _, llr = _noisy_llrs(bg, zc, 8, snr_db=2.0, seed=zc)
+    q = torch.as_tensor(_wire(llr))
+    hard, ok, _ = decoder_cuda.decode_layered_plain(q, bg, zc, wire=True,
+                                                    early_stop=True)
+    got = decoder.decode(q.to(cuda_device), bg, zc, schedule="wire_auto")
+    assert torch.equal(got[0].cpu(), hard) and torch.equal(got[1].cpu(), ok)
+    with pytest.raises(ValueError):
+        decoder_cuda.decode_layered(torch.as_tensor(llr, device=cuda_device), bg,
+                                    zc, wire=False)
+    with pytest.raises(ValueError):
+        decoder_cuda.decode_int8(torch.as_tensor(llr, device=cuda_device), bg, zc,
+                                 b_tile=1)
