@@ -43,10 +43,28 @@ Phases (any failure exits non-zero):
                its callers call it, on the full cell's decoder input) is
                driven with the counts reset around it; its time, its plain
                version's time, its bound.
+  8. mimo_full_cell — bench.py's bench_full_cell_mimo(256, 2) at
+               FullCellConfig(n_layers=2): the UE UL generated once, mixed
+               through bench.py's static 2x2 channel, 25 dB; the same asserts
+               and launch count as full_cell, then the chained steps, the
+               per-stage breakdown (the LxP front, the 2-port DL grids) and the
+               device profile.
+  9. mimo_data_plane — bench.py's bench_mimo(256, 4): 106 PRB, 4 UEs x 26
+               PRB, 64QAM r0.5, 4 layers through a 4x4 channel at 25 dB;
+               bench.py's payload and CRC assert held against the reference
+               decoder's own outcome at this point (check_wire_floor), K1's
+               launches, chained steps, a short breakdown.
+ 10. qam256_full_cell — bench.py's --qam256 point: 256QAM r682.5/1024 both
+               ways, ul_delay_spread_us = 1.0 (the TA + smoothing estimator),
+               33 dB; as full_cell.
+ 11. kernels on each new path — K1 against its plain version on that
+               phase's real decoder input (early stop and fixed sweeps), its
+               time (early stop; fixed 0, 1 and 6 sweeps), resident CTAs per
+               SM, its bound.
 
 Prints the card (nvidia-smi name, power limit), a JSON line per phase, the
-{"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Imports
-nothing of JAX.
+{"kernels": [...]} line (K1's entry with its launches on every path), and
+last {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -64,6 +82,16 @@ SNR_DB = 25.0
 S_BATCH = 256
 TIMED_STEPS = 20
 FC_TIMED_STEPS = 30      # bench.py's ITERS
+# bench.py --qam256: TS 38.214 Table 5.1.3.1-2 MCS 20 (Qm 8, R 682.5/1024)
+# both ways, the TA + smoothing PUSCH estimator, at 33 dB.
+QAM256_KW = dict(dl_modulation="qam256", ul_modulation="qam256",
+                 dl_target_rate=682.5 / 1024, ul_target_rate=682.5 / 1024,
+                 ul_delay_spread_us=1.0)
+QAM256_SNR_DB = 33.0
+# At the 4x4 point the reference's wire decode leaves 0.24 % of the TBs
+# undecoded over 24,576 TBs (at most 5 of 1024 in one draw; ROADMAP.md
+# Queue C): a failure share above this bound is a fault.
+WIRE_FLOOR_MAX_TB_SHARE = 0.01
 NUM_ITERS = 6
 # H100 SXM data sheet (see PERF.md): HBM
 # rate, and the 32-bit ALU rate = 67 TFLOP/s fp32 (FMA counted as two) / 2.
@@ -340,14 +368,60 @@ def kernel_bound(g, zc, total_sweeps, n_bytes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def phase_full_cell(fcm, sp, cuda_build, dec, dev):
-    """bench.py's bench_full_cell on the port: asserts, K1's launches, the
-    chained timed steps and the per-channel breakdown."""
+def mix_matrix(n, gen, dev):
+    """bench.py's static LxL spatial channel: 0.35 (N(0,1) + jN(0,1))/sqrt(2)
+    plus the DFT matrix / sqrt(L), from the seeded generator."""
     import torch
-    fc = fcm.FullCellConfig()
-    s, u = S_BATCH, fc.nof_ue
+    a = torch.complex(torch.randn((n, n), generator=gen, device=dev),
+                      torch.randn((n, n), generator=gen, device=dev)) / math.sqrt(2)
+    k = torch.arange(n, device=dev, dtype=torch.float32)
+    ph = -2.0 * math.pi * torch.outer(k, k) / n
+    dft = torch.complex(torch.cos(ph), torch.sin(ph)) / math.sqrt(n)
+    return (0.35 * a + dft).to(torch.complex64)
+
+
+def device_profile(step_fn, n_prof: int, wall_ms: float) -> dict:
+    """Device busy time per step from torch.profiler's device records (the
+    union of their intervals) against the unprofiled wall time per step: the
+    idle share; and the operations that took the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            step_fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end = 0.0, -math.inf
+    by_name = {}
+    for e in sorted(dev_events, key=lambda e: e.time_range.start):
+        t0_us, t1_us = e.time_range.start, e.time_range.end
+        if t1_us > end:
+            busy_us += t1_us - max(t0_us, end)
+            end = t1_us
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + (t1_us - t0_us)
+    busy_ms = busy_us / n_prof / 1e3 if dev_events else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(steps=n_prof, wall_ms_per_step=wall_ms,
+                device_busy_ms_per_step=busy_ms,
+                idle_share=None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+                device_ops_per_step=len(dev_events) / n_prof,
+                top_ms_per_step={k: v / n_prof / 1e3 for k, v in top})
+
+
+def phase_full_cell(fcm, sp, cuda_build, dec, dev, fc, tag, snr_db, steps):
+    """bench.py's bench_full_cell (or, at fc.n_layers > 1,
+    bench_full_cell_mimo) on the port: asserts, K1's launches, the chained
+    timed steps, the per-channel breakdown and the device profile.  Phases
+    ``<tag>``, ``<tag>_e2e``, ``<tag>_breakdown_ms_per_step`` and
+    ``<tag>_device_profile``."""
+    import torch
+    mimo = fc.n_layers > 1
+    s, u, n_l = S_BATCH, fc.nof_ue, fc.n_layers
     t = fc.timing
     cell_u = fc.ul_cell()
+    cell_n, cell_s = ((fc.dl_cell_mimo(), fc.dl_cell_ssb_mimo()) if mimo
+                      else (fc.dl_cell(), fc.dl_cell_ssb()))
     seg, rm = sp._plans(cell_u)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
 
@@ -356,25 +430,32 @@ def phase_full_cell(fcm, sp, cuda_build, dec, dev):
                              dtype=torch.int8)
 
     norm_idx, ssb_idx = fc.norm_slots(s), fc.ssb_slots(s)
-    pay_n = bits(len(norm_idx), u, fc.dl_cell().derived_tbs())
-    pay_s = bits(len(ssb_idx), u, fc.dl_cell_ssb().derived_tbs())
+    pay_n = bits(len(norm_idx), u, cell_n.derived_tbs())
+    pay_s = bits(len(ssb_idx), u, cell_s.derived_tbs())
     dci = bits(s, 2 * u, fc.dci_bits)
     pbch = bits(len(ssb_idx), 24)
     pay_u = bits(s, u, cell_u.derived_tbs())
     ack = bits(s, u, 2)
     csi = bits(len(fc.csi_slots(s)), u, fc.csi_bits)
 
-    ul = fcm.ue_ul_slot_batch(pay_u, ack, csi, fc, s, device=dev)
-    noise = awgn(ul, SNR_DB, gen)
+    if mimo:
+        gnb_dl, gnb_ul = fcm.gnb_dl_slot_batch_mimo, fcm.gnb_ul_slot_batch_mimo
+        mix = mix_matrix(n_l, gen, dev)
+        ul = torch.einsum("pl,slt->spt", mix,
+                          fcm.ue_ul_slot_batch_mimo(pay_u, ack, csi, fc, s, device=dev))
+    else:
+        gnb_dl, gnb_ul = fcm.gnb_dl_slot_batch, fcm.gnb_ul_slot_batch
+        ul = fcm.ue_ul_slot_batch(pay_u, ack, csi, fc, s, device=dev)
+    noise = awgn(ul, snr_db, gen)
     ones = torch.ones((s, u), device=dev)
     soft0 = torch.zeros((s * u * seg.c, rm.n_cb), dtype=torch.int8, device=dev)
 
     def step(pn, eps, flip, soft):
         """One full-cell DL TX + UL RX slot batch, chained as bench.py."""
-        td = fcm.gnb_dl_slot_batch(pn ^ eps, pay_s, dci, pbch, fc, s, device=dev)
+        td = gnb_dl(pn ^ eps, pay_s, dci, pbch, fc, s, device=dev)
         dl_pow = (td.real ** 2 + td.imag ** 2).mean()
-        res = fcm.gnb_ul_slot_batch(ul + noise * flip, fc, s, soft_in=soft,
-                                    new_data=ones, soft_flat=True, device=dev)
+        res = gnb_ul(ul + noise * flip, fc, s, soft_in=soft, new_data=ones,
+                     soft_flat=True, device=dev)
         eps_next = (res["payload"][0, 0, 0] & 0) | (dl_pow > 1e30).to(torch.int8)
         return res, eps_next, -flip, td
 
@@ -387,29 +468,30 @@ def phase_full_cell(fcm, sp, cuda_build, dec, dev):
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
     first_s = time.perf_counter() - t0
-    check(tuple(td.shape) == (s, t.cp.total) and bool(torch.isfinite(td.real).all()
-                                                      and torch.isfinite(td.imag).all()),
-          f"full cell DL samples {tuple(td.shape)}")
+    td_shape = (s, n_l, t.cp.total) if mimo else (s, t.cp.total)
+    check(tuple(td.shape) == td_shape and bool(torch.isfinite(td.real).all()
+                                                and torch.isfinite(td.imag).all()),
+          f"{tag} DL samples {tuple(td.shape)}")
     ok = res["tb_ok"]
-    check(bool(ok.all()), f"PUSCH CRC failed: {int(ok.sum())}/{ok.numel()}")
-    check(torch.equal(res["payload"], pay_u), "PUSCH payload mismatch")
-    check(torch.equal(res["ack_bits"], ack), "PUCCH F1 ACK mismatch")
-    check(bool(res["csi_ok"].all()), "PUCCH F2 CSI not valid")
-    check(torch.equal(res["csi_bits"], csi), "PUCCH F2 CSI mismatch")
+    check(bool(ok.all()), f"{tag} PUSCH CRC failed: {int(ok.sum())}/{ok.numel()}")
+    check(torch.equal(res["payload"], pay_u), f"{tag} PUSCH payload mismatch")
+    check(torch.equal(res["ack_bits"], ack), f"{tag} PUCCH F1 ACK mismatch")
+    check(bool(res["csi_ok"].all()), f"{tag} PUCCH F2 CSI not valid")
+    check(torch.equal(res["csi_bits"], csi), f"{tag} PUCCH F2 CSI mismatch")
     det = res["prach_detected"]
     others = torch.ones(64, dtype=torch.bool, device=dev)
     others[7] = False
     check(bool(det[:, 7].all()) and not bool(det[:, others].any()),
-          f"PRACH detection wrong: {torch.nonzero(det).tolist()[:8]}")
+          f"{tag} PRACH detection wrong: {torch.nonzero(det).tolist()[:8]}")
     check(tuple(res["soft"].shape) == (s * u * seg.c, rm.n_cb)
-          and res["soft"].dtype == torch.int8, "flat HARQ carry")
-    check(launches.get(dec.KERNEL, 0) > 0,
-          f"the full cell launched no {dec.KERNEL} kernel")
-    emit("full_cell", cell="FullCellConfig() 106PRB nfft1536 4UE qam64 r0.5",
-         slots=s, snr_db=SNR_DB, tbs_ul=cell_u.derived_tbs(),
-         codeblocks=s * u * seg.c, bg=seg.bg, zc=seg.zc, e=rm.e, n_cb=rm.n_cb,
-         carry_bytes=res["soft"].numel(), first_step_seconds=first_s,
-         launches=launches, tb_ok=int(ok.sum()),
+          and res["soft"].dtype == torch.int8, f"{tag} flat HARQ carry")
+    check(launches.get(dec.KERNEL, 0) > 0, f"{tag} launched no {dec.KERNEL} kernel")
+    emit(tag, cell=f"{fc.nof_prb}PRB nfft{fc.nfft} {u}UE {fc.ul_modulation} "
+         f"r{fc.ul_target_rate:.4g} {n_l}x{n_l} delay_spread_us={fc.ul_delay_spread_us}",
+         slots=s, snr_db=snr_db, tbs_ul=cell_u.derived_tbs(),
+         tbs_dl=cell_n.derived_tbs(), codeblocks=s * u * seg.c, bg=seg.bg,
+         zc=seg.zc, e=rm.e, n_cb=rm.n_cb, carry_bytes=res["soft"].numel(),
+         first_step_seconds=first_s, launches=launches, tb_ok=int(ok.sum()),
          prach_occasions=int(det.shape[0]),
          srs_snr_db_mean=float(res["srs_snr_db"].mean()),
          prach_delay=sorted(set(res["prach_delay"][:, 7].tolist())))
@@ -417,15 +499,16 @@ def phase_full_cell(fcm, sp, cuda_build, dec, dev):
     for _ in range(2):
         res, eps, flip, _ = step(pay_n, eps, flip, res["soft"])
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(FC_TIMED_STEPS):
+    for _ in range(steps):
         res, eps, flip, _ = step(pay_n, eps, flip, res["soft"])
     _ = int(eps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    check(bool(res["tb_ok"].all()), "full cell timed steps: CRC")
-    slot_ms = dt / (FC_TIMED_STEPS * s) * 1e3
-    emit("full_cell_e2e", steps=FC_TIMED_STEPS, slots_per_step=s, seconds=dt,
+    check(bool(res["tb_ok"].all()), f"{tag} timed steps: CRC")
+    slot_ms = dt / (steps * s) * 1e3
+    emit(f"{tag}_e2e", steps=steps, slots_per_step=s, seconds=dt,
          ms_per_slot=slot_ms, x_real_time=(1.0 / (1 << fc.mu)) / slot_ms,
          samples_per_s=t.cp.total / (slot_ms * 1e-3), srate=t.srate,
          peak_mem_bytes=torch.cuda.max_memory_allocated())
@@ -434,69 +517,239 @@ def phase_full_cell(fcm, sp, cuda_build, dec, dev):
     from srsran_edgeric_5g_tpu_torch.ops import ofdm, prach
     from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder
     rntis = fcm._rntis(fc, dev)
-    cell_n, cell_s = fc.dl_cell(), fc.dl_cell_ssb()
     rx = ul + noise
     grid = ofdm.demodulate_slot(td, t, scale=float(t.nfft))
-    rx_grid = ofdm.demodulate_slot(rx, t, scale=1.0)
-    llr = sp._ul_front(None, rntis, cell_u, rx_grid=rx_grid)[0].reshape(s * u, -1)
+    if mimo:
+        rx_flat = rx.reshape(s * n_l, -1)
+        rx_grid = ofdm.demodulate_slot(rx_flat, t, scale=1.0).reshape(
+            s, n_l, t.nsymb, t.nof_subc)
+        rx_grid0, rx0 = rx_grid[:, 0], rx[:, 0]
+        llr = sp._ul_front_mimo(None, rntis, cell_u, rx_grid=rx_grid)[0]
+        extra = fcm._dl_control_rows(dci, fc, s)
+        stages = {
+            "dl_total": lambda: gnb_dl(pay_n, pay_s, dci, pbch, fc, s, device=dev),
+            "dl_pdsch_grids": lambda: (
+                sp.dl_slot_batch_mimo(pay_n, rntis, cell_n, return_grid=True,
+                                      extra_rows=fcm._slot_drop_period(
+                                          extra, fc.ssb_period),
+                                      device=dev),
+                sp.dl_slot_batch_mimo(pay_s, rntis, cell_s, return_grid=True,
+                                      extra_rows=extra[0::fc.ssb_period],
+                                      device=dev)),
+            "dl_pdcch": lambda: fcm.pdcch_rows(dci, fc, s),
+            "dl_ssb": lambda: fcm.ssb_blocks(pbch, fc, s),
+            "dl_ofdm_mod": lambda: ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft),
+            "ul_total": lambda: gnb_ul(rx, fc, s, soft_in=soft0, new_data=ones,
+                                       soft_flat=True, device=dev),
+            "ul_ofdm_demod": lambda: ofdm.demodulate_slot(rx_flat, t, scale=1.0),
+            "ul_pusch_front": lambda: sp._ul_front_mimo(None, rntis, cell_u,
+                                                        rx_grid=rx_grid),
+        }
+    else:
+        rx_grid = rx_grid0 = ofdm.demodulate_slot(rx, t, scale=1.0)
+        rx0 = rx
+        llr = sp._ul_front(None, rntis, cell_u, rx_grid=rx_grid)[0].reshape(s * u, -1)
+        stages = {
+            "dl_total": lambda: gnb_dl(pay_n, pay_s, dci, pbch, fc, s, device=dev),
+            "dl_pdsch_code": lambda: (
+                sp._dl_code(pay_n.reshape(-1, pay_n.shape[-1]), rntis, cell_n),
+                sp._dl_code(pay_s.reshape(-1, pay_s.shape[-1]), rntis, cell_s)),
+            "dl_pdcch": lambda: fcm.pdcch_rows(dci, fc, s),
+            "dl_ssb": lambda: fcm.ssb_blocks(pbch, fc, s),
+            "dl_ofdm_mod": lambda: ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft),
+            "ul_total": lambda: gnb_ul(rx, fc, s, soft_in=soft0, new_data=ones,
+                                       soft_flat=True, device=dev),
+            "ul_ofdm_demod": lambda: ofdm.demodulate_slot(rx, t, scale=1.0),
+            "ul_pusch_front": lambda: sp._ul_front(None, rntis, cell_u,
+                                                   rx_grid=rx_grid),
+        }
     full = sp._decoder_input(llr, cell_u)
     info = fc.prach_info()
-    win = fcm._slot_take(rx, fc.prach_slots(s))[:, :info.cp_samples + info.dft_size]
-    stages = {
-        "dl_total": lambda: fcm.gnb_dl_slot_batch(pay_n, pay_s, dci, pbch, fc, s,
-                                                  device=dev),
-        "dl_pdsch_code": lambda: (
-            sp._dl_code(pay_n.reshape(-1, pay_n.shape[-1]), rntis, cell_n),
-            sp._dl_code(pay_s.reshape(-1, pay_s.shape[-1]), rntis, cell_s)),
-        "dl_pdcch": lambda: fcm.pdcch_rows(dci, fc, s),
-        "dl_ssb": lambda: fcm.ssb_blocks(pbch, fc, s),
-        "dl_ofdm_mod": lambda: ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft),
-        "ul_total": lambda: fcm.gnb_ul_slot_batch(rx, fc, s, soft_in=soft0,
-                                                  new_data=ones, soft_flat=True,
-                                                  device=dev),
-        "ul_ofdm_demod": lambda: ofdm.demodulate_slot(rx, t, scale=1.0),
-        "ul_pusch_front": lambda: sp._ul_front(None, rntis, cell_u, rx_grid=rx_grid),
+    win = fcm._slot_take(rx0, fc.prach_slots(s))[:, :info.cp_samples + info.dft_size]
+    stages.update({
         "ul_dematch": lambda: sp._decoder_input(llr, cell_u, 0, soft0, ones.reshape(-1)),
         "ul_decode": lambda: decoder.decode(full, seg.bg, seg.zc, NUM_ITERS,
                                             schedule="wire_auto"),
-        "ul_pucch_f1": lambda: fcm._f1_detect(rx_grid, fc, s),
-        "ul_pucch_f2": lambda: fcm._f2_decode(fcm._slot_take(rx_grid, fc.csi_slots(s)),
+        "ul_pucch_f1": lambda: fcm._f1_detect(rx_grid0, fc, s),
+        "ul_pucch_f2": lambda: fcm._f2_decode(fcm._slot_take(rx_grid0, fc.csi_slots(s)),
                                               fc, s),
-        "ul_srs": lambda: fcm._srs_estimate(fcm._slot_take(rx_grid, fc.srs_slots(s)), fc),
+        "ul_srs": lambda: fcm._srs_estimate(fcm._slot_take(rx_grid0, fc.srs_slots(s)),
+                                            fc),
         "ul_prach": lambda: fcm._prach_detect_batch(
             prach.ofdm_demodulate_prach(win, info), fc),
-    }
-    emit("full_cell_breakdown_ms_per_step", slots_per_step=s,
+    })
+    emit(f"{tag}_breakdown_ms_per_step", slots_per_step=s,
          **{k: cuda_ms(f, 5) for k, f in stages.items()})
 
-    # Device busy time of the chained step from the profiler's device
-    # records (the union of their intervals), against the unprofiled wall
-    # time per step above: the device's idle share.
-    from torch.profiler import ProfilerActivity, profile
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            res, eps, flip, _ = step(pay_n, eps, flip, res["soft"])
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us, end = 0.0, -math.inf
-    by_name = {}
-    for e in sorted(dev_events, key=lambda e: e.time_range.start):
-        t0_us, t1_us = e.time_range.start, e.time_range.end
-        if t1_us > end:
-            busy_us += t1_us - max(t0_us, end)
-            end = t1_us
-        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + (t1_us - t0_us)
-    wall_ms = slot_ms * s
-    busy_ms = busy_us / n_prof / 1e3 if dev_events else None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit("full_cell_device_profile", steps=n_prof, wall_ms_per_step=wall_ms,
-         device_busy_ms_per_step=busy_ms,
-         idle_share=None if busy_ms is None else 1.0 - busy_ms / wall_ms,
-         device_ops_per_step=len(dev_events) / n_prof,
-         top_ms_per_step={k: v / n_prof / 1e3 for k, v in top})
-    return dict(decoder_input=full, launches=launches)
+    def prof_step():
+        nonlocal res, eps, flip
+        res, eps, flip, _ = step(pay_n, eps, flip, res["soft"])
+
+    emit(f"{tag}_device_profile", **device_profile(prof_step, 3, slot_ms * s))
+    return dict(decoder_input=full, launches=launches, bg=seg.bg, zc=seg.zc)
+
+
+def check_wire_floor(sp, dec, cell, rx, rntis, payloads, res, tag) -> int:
+    """bench.py's assert at the 4x4 point, held against the reference
+    decoder's own outcome there (ROADMAP.md Queue C: the JAX package's wire
+    decode, which K1 reproduces bit for bit, leaves some of this point's
+    codeblocks unconverged where its f32 layered min-sum decodes them all).
+    Every TB that passes CRC carries its exact payload; a TB fails only
+    where a codeblock of it never meets parity in the wire decoder, at most
+    WIRE_FLOOR_MAX_TB_SHARE of the TBs; and the f32 decoder, K1's f32 mode
+    on the same decoder input, recovers every TB's exact payload (so the
+    front delivered the information).  Returns the TBs that failed."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc import segmenter
+    pay_hat, ok = res[0], res[1]
+    check(torch.equal(pay_hat[ok], payloads[ok]),
+          f"{tag}: payload mismatch on a TB that passed CRC")
+    n_fail = int((~ok).sum())
+    if n_fail == 0:
+        return 0
+    check(n_fail <= WIRE_FLOOR_MAX_TB_SHARE * ok.numel(),
+          f"{tag}: {n_fail}/{ok.numel()} TBs failed CRC")
+    seg, _ = sp._plans(cell)
+    full = sp._decoder_input(sp._ul_front_mimo(rx, rntis, cell)[0], cell)
+    _, cb_ok, _ = dec.decode_layered(full, seg.bg, seg.zc, NUM_ITERS, wire=True,
+                                     early_stop=True)
+    check(torch.equal(cb_ok.reshape(-1, seg.c).all(dim=1).reshape(ok.shape), ok),
+          f"{tag}: a TB failed CRC with every codeblock meeting parity")
+    hard, _, _ = dec.decode_layered((full.float() / 6.0).contiguous(), seg.bg,
+                                    seg.zc, NUM_ITERS, wire=False, early_stop=True)
+    pay_f32, ok_f32 = segmenter.desegment_tb(hard, seg)
+    check(bool(ok_f32.all()) and torch.equal(pay_f32.reshape(payloads.shape), payloads),
+          f"{tag}: the f32 decoder does not recover every TB")
+    return n_fail
+
+
+def mimo_data_plane_inputs(sp, dev, n_l):
+    """bench_mimo's cell and, from the seeded generator, its payloads, the
+    LxL channel and the noise: (cell, payloads, rntis, mix, noise)."""
+    import torch
+    cell = sp.CellConfig(nof_prb=106, nfft=1536, nof_ue=4, prb_per_ue=26,
+                         modulation="qam64", target_rate=0.5, n_layers=n_l)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    payloads = torch.randint(0, 2, (S_BATCH, cell.nof_ue, cell.derived_tbs()),
+                             generator=gen, device=dev, dtype=torch.int8)
+    rntis = torch.arange(cell.nof_ue, device=dev) + 0x4601
+    mix = mix_matrix(n_l, gen, dev)
+    noise = awgn(sp.dl_slot_batch_mimo(payloads, rntis, cell, device=dev),
+                 SNR_DB, gen)
+    return cell, payloads, rntis, mix, noise
+
+
+def phase_mimo_data_plane(sp, cuda_build, dec, dev, n_l):
+    """bench.py's bench_mimo: the 20 MHz data plane (106 PRB, 4 UEs x 26
+    PRB, 64QAM r0.5) at n_l layers through the LxL channel at 25 dB:
+    dl_slot_batch_mimo -> mix -> ul_slot_batch_mimo, payload-exact; K1's
+    launches; the chained step and a short breakdown."""
+    import torch
+    cell, payloads, rntis, mix, noise = mimo_data_plane_inputs(sp, dev, n_l)
+    t = cell.timing
+    s, u = S_BATCH, cell.nof_ue
+    seg, rm = sp._plans(cell)
+
+    def step(eps, flip):
+        td = sp.dl_slot_batch_mimo(payloads ^ eps, rntis, cell, device=dev)
+        rx = torch.einsum("pl,slt->spt", mix, td) + noise * flip
+        res = sp.ul_slot_batch_mimo(rx, rntis, cell, device=dev)
+        return res, res[0][0, 0, 0] & 0, -flip, rx
+
+    eps = torch.zeros((), dtype=torch.int8, device=dev)
+    flip = torch.ones((), device=dev)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    res, eps, flip, rx = step(eps, flip)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    check(launches.get(dec.KERNEL, 0) > 0, f"the MIMO data plane launched no {dec.KERNEL}")
+    wire_fail = check_wire_floor(sp, dec, cell, rx, rntis, payloads, res,
+                                 "mimo_data_plane")
+    emit("mimo_data_plane", cell=f"106PRB nfft1536 4UEx26PRB qam64 r0.5 {n_l}x{n_l}",
+         slots=s, snr_db=SNR_DB, tbs=cell.derived_tbs(), codeblocks=s * u * seg.c,
+         bg=seg.bg, zc=seg.zc, e=rm.e, n_cb=rm.n_cb, launches=launches,
+         tb_ok=int(res[1].sum()), tb_failed_wire_floor=wire_fail,
+         mean_noise_var=float(res[2].mean()))
+
+    for _ in range(2):
+        res, eps, flip, rx = step(eps, flip)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        res, eps, flip, rx = step(eps, flip)
+    _ = int(eps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_wire_floor(sp, dec, cell, rx, rntis, payloads, res, "mimo timed steps")
+    slot_ms = dt / (TIMED_STEPS * s) * 1e3
+    emit("mimo_data_plane_e2e", steps=TIMED_STEPS, slots_per_step=s, seconds=dt,
+         ms_per_slot=slot_ms, x_real_time=(1.0 / (1 << cell.mu)) / slot_ms,
+         samples_per_s=t.cp.total / (slot_ms * 1e-3), srate=t.srate,
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder
+    td = sp.dl_slot_batch_mimo(payloads, rntis, cell, device=dev)
+    rx = torch.einsum("pl,slt->spt", mix, td) + noise
+    llr = sp._ul_front_mimo(rx, rntis, cell)[0]
+    full = sp._decoder_input(llr, cell)
+    stages = {
+        "dl_slot_batch_mimo": lambda: sp.dl_slot_batch_mimo(payloads, rntis, cell,
+                                                            device=dev),
+        "ul_front": lambda: sp._ul_front_mimo(rx, rntis, cell),
+        "ul_dematch": lambda: sp._decoder_input(llr, cell),
+        "ul_decode": lambda: decoder.decode(full, seg.bg, seg.zc, NUM_ITERS,
+                                            schedule="wire_auto"),
+        "ul_slot_batch_mimo": lambda: sp.ul_slot_batch_mimo(rx, rntis, cell,
+                                                            device=dev),
+    }
+    emit("mimo_data_plane_breakdown_ms_per_step", slots_per_step=s,
+         **{k: cuda_ms(f, 5) for k, f in stages.items()})
+    return dict(decoder_input=full, launches=launches, bg=seg.bg, zc=seg.zc)
+
+
+def phase_path_kernel(dec, path, ctx):
+    """K1 on one path's real decoder input: == its plain version (early stop
+    and fixed sweeps), its time (early stop; fixed 0 / 1 / 6 sweeps), the
+    plain version's time, resident CTAs per SM and the bound."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc.graph import get_graph
+    full, bg, zc = ctx["decoder_input"], ctx["bg"], ctx["zc"]
+    max_err = 0
+    for early_stop in (False, True):
+        k = dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True, early_stop=early_stop)
+        p = dec.decode_layered_plain(full, bg, zc, NUM_ITERS, wire=True,
+                                     early_stop=early_stop)
+        err = int((k[0].int() - p[0].int()).abs().max())
+        max_err = max(max_err, err)
+        same = all(torch.equal(a, b) for a, b in zip(k, p))
+        check(same, f"{path} BG{bg} Zc={zc} early_stop={early_stop}: kernel != plain "
+                    f"(max |hard diff| {err})")
+        emit("kernel_vs_plain", case=f"{path} BG{bg} Zc={zc}", mode="wire",
+             early_stop=early_stop, codeblocks=full.shape[0], equal=same,
+             ok=int(k[1].sum()), mean_sweeps=float(k[2].float().mean()))
+    g = get_graph(bg, zc)
+    _, _, sweeps = dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
+                                      early_stop=True)
+    ms = cuda_ms(lambda: dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
+                                            early_stop=True), 20)
+    fixed = {n: cuda_ms(lambda n=n: dec.decode_layered(full, bg, zc, n, wire=True,
+                                                       early_stop=False), 10)
+             for n in (0, 1, NUM_ITERS)}
+    plain_ms = cuda_ms(lambda: dec.decode_layered_plain(
+        full, bg, zc, NUM_ITERS, wire=True, early_stop=True), 3, warmup=1)
+    total_sweeps = int(sweeps.sum())
+    n_bytes = full.numel() + full.shape[0] * (g.kb * zc + 1 + 4)
+    bound_ms, bound_by = kernel_bound(g, zc, total_sweeps, n_bytes)
+    emit("kernel_time", kernel=dec.KERNEL, path=path, bg=bg, zc=zc,
+         codeblocks=full.shape[0], blocks_per_sm=dec.blocks_per_sm(dec.MODE_WIRE, bg, zc),
+         sweeps_total=total_sweeps, mean_sweeps=total_sweeps / full.shape[0],
+         wire_early_stop_ms=ms, wire_fixed_0_ms=fixed[0], wire_fixed_1_ms=fixed[1],
+         wire_fixed_6_ms=fixed[NUM_ITERS], plain_wire_early_stop_ms=plain_ms,
+         bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(launches=ctx["launches"].get(dec.KERNEL, 0), max_abs_err=max_err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def tools_shape_llrs(encoder, dev, snr_db, gen):
@@ -654,9 +907,23 @@ def main() -> int:
     phase_small(sp, dev)
     max_err = phase_kernels(sp, decoder_cuda, encoder, dev, ctx)
     tm = phase_timing(sp, decoder_cuda, dev, ctx)
-    fcx = phase_full_cell(fcm, sp, cuda_build, decoder_cuda, dev)
+    fcx = phase_full_cell(fcm, sp, cuda_build, decoder_cuda, dev,
+                          fcm.FullCellConfig(), "full_cell", SNR_DB, FC_TIMED_STEPS)
     k2 = phase_kernel_int8(decoder_cuda, encoder, cuda_build, dev,
                            fcx["decoder_input"])
+    # This slice's configurations of the main path: bench.py --mimo-full=2,
+    # --mimo=4 and --qam256; K1 on each one's real decoder input.
+    paths = {
+        "mimo_full_cell": phase_full_cell(
+            fcm, sp, cuda_build, decoder_cuda, dev, fcm.FullCellConfig(n_layers=2),
+            "mimo_full_cell", SNR_DB, FC_TIMED_STEPS),
+        "mimo_data_plane": phase_mimo_data_plane(sp, cuda_build, decoder_cuda, dev, 4),
+        "qam256_full_cell": phase_full_cell(
+            fcm, sp, cuda_build, decoder_cuda, dev, fcm.FullCellConfig(**QAM256_KW),
+            "qam256_full_cell", QAM256_SNR_DB, FC_TIMED_STEPS),
+    }
+    per_path = {name: phase_path_kernel(decoder_cuda, name, path)
+                for name, path in paths.items()}
 
     leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "srsran_edgeric_5g_tpu" or m.startswith("srsran_edgeric_5g_tpu.")]
@@ -664,16 +931,23 @@ def main() -> int:
 
     # No PyTorch call computes a layered min-sum decode: library_ms is null.
     src = "srsran_edgeric_5g_tpu_torch/csrc/ldpc_layered.cu"
+    launches_per_path = {"data_plane": ctx["launches"].get(decoder_cuda.KERNEL, 0),
+                         "full_cell": fcx["launches"].get(decoder_cuda.KERNEL, 0),
+                         **{k: v["launches"] for k, v in per_path.items()}}
+    check(all(n > 0 for n in launches_per_path.values()),
+          f"a path launched no K1: {launches_per_path}")
     kernels = [{
         "name": decoder_cuda.KERNEL, "route": "cuda", "source": src,
-        "replaces": "srsran_edgeric_5g_tpu/ops/ldpc/decoder_pallas.py:211",
+        "replaces": "srsran_edgeric_5g_tpu/ops/ldpc/decoder_pallas.py:224",
         "launches": fcx["launches"].get(decoder_cuda.KERNEL, 0),
-        "max_abs_err": max_err, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+        "max_abs_err": max(max_err, *(v["max_abs_err"] for v in per_path.values())),
+        "ms": tm["ms"], "plain_ms": tm["plain_ms"],
         "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "launches_per_path": launches_per_path,
+        "per_path": per_path,
     }, {
         "name": decoder_cuda.KERNEL_INT8, "route": "cuda", "source": src,
-        "replaces": "srsran_edgeric_5g_tpu/ops/ldpc/decoder_pallas.py:261",
+        "replaces": "srsran_edgeric_5g_tpu/ops/ldpc/decoder_pallas.py:273",
         "launches": k2["launches"], "max_abs_err": k2["max_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None,

@@ -1,7 +1,7 @@
-"""Full gNB slot pipeline, SISO: every per-slot channel of the cell in one
-DL and one UL slot-batch call.
+"""Full gNB slot pipeline: every per-slot channel of the cell in one DL and
+one UL slot-batch call.
 
-Port of the SISO part of ``srsran_edgeric_5g_tpu/parallel/full_cell.py``.
+Port of ``srsran_edgeric_5g_tpu/parallel/full_cell.py``.
 
   DL TX (``gnb_dl_slot_batch``):
     * PDSCH for all UEs (the slot pipeline's coding front-end, DM-RS 0 dB);
@@ -26,8 +26,13 @@ occasion selection and re-interleaving are strided slices, and the PRACH
 correlation's prime-length (839) IDFT is ``torch.fft.ifft`` instead of an
 IDFT matmul.  Host constants (pilots, sequences, mappings) are built once
 per (config, S) in numpy and cached as device tensors per device, so a
-step copies nothing from the host.  The MIMO variants (``n_layers > 1``)
-are not ported yet.
+step copies nothing from the host.
+
+The MIMO variants (``gnb_dl_slot_batch_mimo``, ``ue_ul_slot_batch_mimo``,
+``gnb_ul_slot_batch_mimo``) run PDSCH/PUSCH at ``n_layers`` layers through
+the slot pipeline's ``*_mimo`` programs; the control channels (PDCCH, SSB
+and CSI-RS down, PUCCH, SRS and PRACH up) stay single-port on port /
+antenna 0.
 """
 
 from __future__ import annotations
@@ -143,10 +148,10 @@ class FullCellConfig:
     # TX amplitude controller: ceiling 0 = scale mode.
     tx_gain: float = 1.0
     tx_ceiling: float = 0.0
-    # Spatial layers per UE; this port runs the SISO programs (1).
+    # Spatial layers per UE of PDSCH/PUSCH (> 1: the *_mimo entry points).
     n_layers: int = 1
-    # PUSCH channel estimator: 0 = LS + interpolation (the TA + smoothing
-    # estimator is not ported yet).
+    # PUSCH channel estimator: 0 = LS + interpolation, > 0 = TA + smoothing
+    # over this delay spread.
     ul_delay_spread_us: float = 0.0
 
     # ------------------------------------------------------- derived cells
@@ -172,6 +177,12 @@ class FullCellConfig:
             dmrs_symbols=(2, 11), n_id=self.n_id, mu=self.mu,
             first_prb=self.ul_first_prb, n_layers=self.n_layers,
             delay_spread_us=self.ul_delay_spread_us)
+
+    def dl_cell_mimo(self) -> sp.CellConfig:
+        return dataclasses.replace(self.dl_cell(), n_layers=self.n_layers)
+
+    def dl_cell_ssb_mimo(self) -> sp.CellConfig:
+        return dataclasses.replace(self.dl_cell_ssb(), n_layers=self.n_layers)
 
     @property
     def timing(self):
@@ -246,12 +257,6 @@ class FullCellConfig:
         off_hz = (self.prach_freq_prb * N_SC_PER_PRB
                   - t.nof_subc // 2) * 15e3 * (1 << self.mu)
         return prach_mod.prach_ofdm_info(int(t.srate), freq_offset_hz=off_hz)
-
-
-def _check_siso(fc: FullCellConfig) -> None:
-    if fc.n_layers != 1:
-        raise NotImplementedError("the MIMO full cell (n_layers > 1) is not "
-                                  "ported yet")
 
 
 def _dev(*arrays, device):
@@ -398,7 +403,6 @@ def gnb_dl_slot_batch(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
     pay_ssb: (S_ssb, U, TBS_dl_ssb) payloads of the SSB slots (shorter
     PDSCH); dci: (S, 2U, A) DCI payloads; pbch: (S_ssb, 24) MIB payloads.
     """
-    _check_siso(fc)
     dev = resolve_device(device)
     pay_norm, pay_ssb, dci, pbch = (torch.as_tensor(x, device=dev)
                                     for x in (pay_norm, pay_ssb, dci, pbch))
@@ -672,6 +676,22 @@ def prach_occasion_td(fc: FullCellConfig, preamble_index: int,
 
 # ============================================================ UE UL TX
 
+def _ue_ul_control(ack: torch.Tensor, csi: torch.Tensor, fc: FullCellConfig,
+                   s_total: int) -> torch.Tensor:
+    """(S, nsymb, nsubc) UE control contribution: PUCCH F1 every slot, F2
+    CSI and SRS on their occasions."""
+    dev = ack.device
+    t = fc.timing
+    u = fc.nof_ue
+    extra = torch.zeros((s_total, t.nsymb, t.nof_subc), dtype=torch.complex64,
+                        device=dev)
+    extra[:, :14, :u * 12] = _f1_symbols(ack, fc, s_total)
+    extra[_slot_slice(fc.csi_slots(s_total)), 0:2] += \
+        _f2_symbols(csi, fc, s_total)
+    extra[_slot_slice(fc.srs_slots(s_total)), 13] += _srs_tensors(fc, dev)[2]
+    return extra
+
+
 def ue_ul_slot_batch(payloads, ack, csi, fc: FullCellConfig, s_total: int,
                      prach_preamble: int = 7, prach_delay: int = 24,
                      prach_amplitude: float = 0.002,
@@ -681,30 +701,74 @@ def ue_ul_slot_batch(payloads, ack, csi, fc: FullCellConfig, s_total: int,
     PUSCH + PUCCH F1 (+ F2 / SRS / PRACH on their occasions).  The PRACH
     preamble arrives ``prach_amplitude`` under the PUSCH RMS (open-loop
     power control targets the detector, not the PUSCH level)."""
-    _check_siso(fc)
+    cell = fc.ul_cell()
+    sp._check_siso(cell)
     dev = resolve_device(device)
     payloads, ack, csi = (torch.as_tensor(x, device=dev)
                           for x in (payloads, ack, csi))
-    cell = fc.ul_cell()
     t = cell.timing
     s, u, tbs = payloads.shape
     syms = sp._dl_code(payloads.reshape(s * u, tbs), _rntis(fc, dev),
                        cell).reshape(s, u, -1)
-    extra = torch.zeros((s, t.nsymb, t.nof_subc), dtype=torch.complex64,
-                        device=dev)
-    extra[:, :14, :u * 12] = _f1_symbols(ack, fc, s_total)
-    extra[_slot_slice(fc.csi_slots(s_total)), 0:2] += \
-        _f2_symbols(csi, fc, s_total)
-    extra[_slot_slice(fc.srs_slots(s_total)), 13] += _srs_tensors(fc, dev)[2]
-    grid = sp._dl_grid(syms, cell) + extra        # PUSCH DM-RS boost sqrt(2)
-    td = ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft)
+    grid = sp._dl_grid(syms, cell)                # PUSCH DM-RS boost sqrt(2)
+    td = ofdm.modulate_slot(grid + _ue_ul_control(ack, csi, fc, s_total), t,
+                            scale=1.0 / t.nfft)
     ptd = torch.as_tensor(prach_occasion_td(fc, prach_preamble, prach_delay,
                                             prach_amplitude), device=dev)
     td[_slot_slice(fc.prach_slots(s_total))] += ptd
     return td
 
 
+def ue_ul_slot_batch_mimo(payloads, ack, csi, fc: FullCellConfig, s_total: int,
+                          prach_preamble: int = 7, prach_delay: int = 24,
+                          prach_amplitude: float = 0.002,
+                          device: str | torch.device = "cuda") -> torch.Tensor:
+    """UE-side MIMO UL generator: (S, U, TBS_L) PUSCH payloads (+ ACK / CSI)
+    -> (S, L, total) per-port samples.  PUSCH layers on all ports; PUCCH
+    F1/F2, SRS and the PRACH occasion on port 0."""
+    dev = resolve_device(device)
+    payloads, ack, csi = (torch.as_tensor(x, device=dev)
+                          for x in (payloads, ack, csi))
+    td = sp.dl_slot_batch_mimo(payloads, _rntis(fc, dev), fc.ul_cell(),
+                               extra_rows=_ue_ul_control(ack, csi, fc, s_total),
+                               device=dev)                     # (S, L, total)
+    ptd = torch.as_tensor(prach_occasion_td(fc, prach_preamble, prach_delay,
+                                            prach_amplitude), device=dev)
+    td[_slot_slice(fc.prach_slots(s_total)), 0] += ptd
+    return td
+
+
 # ============================================================ gNB UL RX
+
+def _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid0, rx0,
+                fc: FullCellConfig, s_total: int, soft_flat: bool) -> dict:
+    """The UL result dict: the PUSCH outputs, and the single-port control
+    channels detected on one antenna's grid ``rx_grid0`` (S, nsymb, nsubc)
+    and samples ``rx0`` (S, total)."""
+    s, u = rx_grid0.shape[0], fc.nof_ue
+    seg, _ = sp._plans(fc.ul_cell(), 0)
+    ack_bits, ack_metric = _f1_detect(rx_grid0, fc, s_total)
+    csi_bits, csi_ok = _f2_decode(_slot_take(rx_grid0, fc.csi_slots(s_total)),
+                                  fc, s_total)
+    srs_h, srs_snr = _srs_estimate(_slot_take(rx_grid0, fc.srs_slots(s_total)),
+                                   fc)
+    info = fc.prach_info()
+    win = _slot_take(rx0, fc.prach_slots(s_total))[
+        :, :info.cp_samples + info.dft_size]
+    rx_freq = prach_mod.ofdm_demodulate_prach(win, info)
+    pr_metric, pr_delay, pr_det = _prach_detect_batch(rx_freq, fc)
+    return {
+        "payload": payload.reshape(s, u, -1),
+        "tb_ok": tb_ok.reshape(s, u),
+        "noise_var": nv, "cfo": cfo,
+        "soft": soft if soft_flat else soft.reshape(s, u * seg.c, -1),
+        "ack_bits": ack_bits, "ack_metric": ack_metric,
+        "csi_bits": csi_bits, "csi_ok": csi_ok,
+        "srs_h": srs_h, "srs_snr_db": srs_snr,
+        "prach_metric": pr_metric, "prach_delay": pr_delay,
+        "prach_detected": pr_det,
+    }
+
 
 def gnb_ul_slot_batch(rx, fc: FullCellConfig, s_total: int,
                       soft_in=None, new_data=None,
@@ -722,44 +786,89 @@ def gnb_ul_slot_batch(rx, fc: FullCellConfig, s_total: int,
     (S*U*C, n_cb) layout, as a caller does that feeds it straight back.
     ``new_data``: (S, U) mask, 1 = new transmission (its buffer is zeroed).
     """
-    _check_siso(fc)
+    cell = fc.ul_cell()
+    sp._check_siso(cell)
     dev = resolve_device(device)
     rx = torch.as_tensor(rx, device=dev)
-    cell = fc.ul_cell()
-    t = cell.timing
     s, u = rx.shape[0], fc.nof_ue
-    rx_grid = ofdm.demodulate_slot(rx, t, scale=1.0)        # (S, nsymb, nsubc)
-
+    rx_grid = ofdm.demodulate_slot(rx, cell.timing, scale=1.0)  # (S, nsymb, nsubc)
     llr, nv, cfo = sp._ul_front(None, _rntis(fc, dev), cell, rx_grid=rx_grid)
-    seg, _ = sp._plans(cell, 0)
-    sb_flat = None if soft_in is None else torch.as_tensor(soft_in, device=dev)
-    if sb_flat is not None and not soft_flat:
-        sb_flat = sb_flat.reshape(s * u * seg.c, -1)
-    nd_flat = (None if new_data is None else
-               torch.as_tensor(new_data, device=dev).reshape(s * u))
+    sb_flat, nd_flat = sp._harq_flat(soft_in, new_data, cell, s, dev, soft_flat)
     payload, tb_ok, soft = sp._ul_back(llr.reshape(s * u, -1), cell, 0,
                                        num_iters, sb_flat, nd_flat,
                                        early_stop=early_stop)
+    return _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid, rx, fc, s_total,
+                       soft_flat)
 
-    ack_bits, ack_metric = _f1_detect(rx_grid, fc, s_total)
-    csi_bits, csi_ok = _f2_decode(_slot_take(rx_grid, fc.csi_slots(s_total)),
-                                  fc, s_total)
-    srs_h, srs_snr = _srs_estimate(_slot_take(rx_grid, fc.srs_slots(s_total)),
-                                   fc)
-    info = fc.prach_info()
-    win = _slot_take(rx, fc.prach_slots(s_total))[
-        :, :info.cp_samples + info.dft_size]
-    rx_freq = prach_mod.ofdm_demodulate_prach(win, info)
-    pr_metric, pr_delay, pr_det = _prach_detect_batch(rx_freq, fc)
 
-    return {
-        "payload": payload.reshape(s, u, -1),
-        "tb_ok": tb_ok.reshape(s, u),
-        "noise_var": nv, "cfo": cfo,
-        "soft": soft if soft_flat else soft.reshape(s, u * seg.c, -1),
-        "ack_bits": ack_bits, "ack_metric": ack_metric,
-        "csi_bits": csi_bits, "csi_ok": csi_ok,
-        "srs_h": srs_h, "srs_snr_db": srs_snr,
-        "prach_metric": pr_metric, "prach_delay": pr_delay,
-        "prach_detected": pr_det,
-    }
+# ============================================================ MIMO variants
+
+def _dl_control_rows(dci: torch.Tensor, fc: FullCellConfig,
+                     s_total: int) -> torch.Tensor:
+    """(S, nsymb, nsubc) port-0 control contribution: PDCCH on symbol 0
+    every slot, NZP-CSI-RS on its occasions (the SSB blocks are added onto
+    the SSB sub-batch by the caller)."""
+    t = fc.timing
+    extra = torch.zeros((s_total, t.nsymb, t.nof_subc), dtype=torch.complex64,
+                        device=dci.device)
+    extra[:, 0] += pdcch_rows(dci, fc, s_total)
+    extra[:, fc.csi_rs_symbol] += _csi_rs_rows(fc, s_total, dci.device)
+    return extra
+
+
+def gnb_dl_slot_batch_mimo(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
+                           s_total: int, device: str | torch.device = "cuda"
+                           ) -> torch.Tensor:
+    """Full MIMO DL slot batch -> (S, L, total) per-port samples; payloads
+    at the L-layer TBS of ``dl_cell_mimo`` / ``dl_cell_ssb_mimo``.  The
+    sub-batches' grids are merged and modulated once."""
+    dev = resolve_device(device)
+    pay_norm, pay_ssb, dci, pbch = (torch.as_tensor(x, device=dev)
+                                    for x in (pay_norm, pay_ssb, dci, pbch))
+    cell_n, cell_s = fc.dl_cell_mimo(), fc.dl_cell_ssb_mimo()
+    if fc.ssb_slots(s_total)[0] != 0:
+        raise ValueError("the SSB occasions must start at slot 0")
+    k = fc.ssb_period
+    rntis = _rntis(fc, dev)
+    extra = _dl_control_rows(dci, fc, s_total)
+    sc0 = fc.ssb_first_subcarrier
+    ex_s = extra[0::k].clone()
+    ex_s[:, 2:6, sc0:sc0 + 240] += ssb_blocks(pbch, fc, s_total)
+    g_n = sp.dl_slot_batch_mimo(pay_norm, rntis, cell_n,
+                                extra_rows=_slot_drop_period(extra, k),
+                                return_grid=True, device=dev)
+    g_s = sp.dl_slot_batch_mimo(pay_ssb, rntis, cell_s, extra_rows=ex_s,
+                                return_grid=True, device=dev)
+    grid = _slot_merge_period(g_s, g_n, k, s_total)
+    t = fc.timing
+    td = ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft)
+    if fc.tx_ceiling > 0:
+        td, _ = amplitude.clip(td, fc.tx_gain, fc.tx_ceiling)
+    else:
+        td, _ = amplitude.scale(td, fc.tx_gain)
+    return td
+
+
+def gnb_ul_slot_batch_mimo(rx, fc: FullCellConfig, s_total: int,
+                           soft_in=None, new_data=None,
+                           num_iters: int = decoder.DEFAULT_ITERS,
+                           soft_flat: bool = False, early_stop: bool = True,
+                           device: str | torch.device = "cuda") -> dict:
+    """Full MIMO UL slot batch: (S, P, total) antenna samples -> the result
+    dict of ``gnb_ul_slot_batch`` (payload at the L-layer TBS).  All
+    antennas are demodulated once; PUSCH takes the LxP front, PUCCH F1/F2,
+    SRS and PRACH antenna 0."""
+    cell = fc.ul_cell()
+    dev = resolve_device(device)
+    rx = torch.as_tensor(rx, device=dev)
+    t = cell.timing
+    s, p_rx = rx.shape[:2]
+    rx_grid = ofdm.demodulate_slot(rx.reshape(s * p_rx, -1), t, scale=1.0)
+    rx_grid = rx_grid.reshape(s, p_rx, t.nsymb, t.nof_subc)
+    llr, nv, cfo = sp._ul_front_mimo(None, _rntis(fc, dev), cell,
+                                     rx_grid=rx_grid)
+    sb_flat, nd_flat = sp._harq_flat(soft_in, new_data, cell, s, dev, soft_flat)
+    payload, tb_ok, soft = sp._ul_back(llr, cell, 0, num_iters, sb_flat,
+                                       nd_flat, early_stop=early_stop)
+    return _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid[:, 0], rx[:, 0],
+                       fc, s_total, soft_flat)

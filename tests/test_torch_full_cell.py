@@ -167,7 +167,8 @@ def test_slot_occasion_slices():
 
 def test_entry_points_need_cuda_or_cpu_request(cells):
     """The entry points run on the card by default: a host without CUDA
-    raises instead of running on the CPU; MIMO is not ported yet."""
+    raises instead of running on the CPU; the single-layer UL entry points
+    refuse n_layers > 1 (the *_mimo ones take it)."""
     ins = cells["ins"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
@@ -176,5 +177,8 @@ def test_entry_points_need_cuda_or_cpu_request(cells):
             tfc.ue_ul_slot_batch(ins["pay_u"], ins["ack"], ins["csi"],
                                  cells["tc"], S)
     mimo = dataclasses.replace(cells["tc"], n_layers=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mimo"):
         tfc.gnb_ul_slot_batch(cells["rx"], mimo, S, device="cpu")
+    with pytest.raises(ValueError, match="mimo"):
+        tfc.ue_ul_slot_batch(ins["pay_u"], ins["ack"], ins["csi"], mimo, S,
+                             device="cpu")

@@ -359,6 +359,24 @@ def test_wire_kernel_matches_plain_every_lifting_size(cuda_device, bg, zc,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("zc", [288, 320, 352])
+def test_wire_kernel_matches_plain_at_main_path_widths(cuda_device, zc):
+    """Wire mode at the BG1 lifting sizes of the 256QAM full slot (288),
+    the 2x2 MIMO full slot (320) and the 4x4 data plane (352), on 2048
+    codeblocks: the kernel == its plain version, early stop and 6 fixed
+    sweeps."""
+    _, llr = _noisy_llrs(1, zc, 2048, snr_db=1.5, seed=zc)
+    x = torch.as_tensor(_wire(llr), device=cuda_device)
+    for early_stop in (True, False):
+        got = decoder_cuda.decode_layered(x, 1, zc, num_iters=6, wire=True,
+                                          early_stop=early_stop)
+        want = decoder_cuda.decode_layered_plain(x, 1, zc, num_iters=6, wire=True,
+                                                 early_stop=early_stop)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bg,zc", [(2, 40), (1, 15), (2, 2)])
 def test_wire_auto_small_lifting_size_on_card(cuda_device, bg, zc):
     """decode(schedule="wire_auto") on a CUDA tensor decodes at Zc < 64,

@@ -168,10 +168,17 @@ def test_cell_conversion_and_unported_options():
     with pytest.raises(ValueError):
         convert.harq_state_from_numpy(np.zeros((1, 4, 8), np.float32), RNTIS, "cpu")
     pay = np.zeros((1, 4, jc.derived_tbs()), np.int8)
-    for bad in (dataclasses.replace(tc, n_layers=2),
-                dataclasses.replace(tc, delay_spread_us=1.0)):
-        with pytest.raises(NotImplementedError):
-            tsp.dl_slot_batch(pay, RNTIS.astype(np.int64), bad, device="cpu")
+    # The single-layer programs refuse n_layers > 1 (the *_mimo pair takes
+    # it); delay_spread_us only selects the UL estimator.
+    mimo = dataclasses.replace(tc, n_layers=2)
+    with pytest.raises(ValueError, match="mimo"):
+        tsp.dl_slot_batch(pay, RNTIS.astype(np.int64), mimo, device="cpu")
+    with pytest.raises(ValueError, match="mimo"):
+        tsp.ul_slot_batch(np.zeros((1, tc.timing.cp.total), np.complex64),
+                          RNTIS.astype(np.int64), mimo, device="cpu")
+    ta = dataclasses.replace(tc, delay_spread_us=1.0)
+    assert torch.equal(tsp.dl_slot_batch(pay, RNTIS.astype(np.int64), ta, device="cpu"),
+                       tsp.dl_slot_batch(pay, RNTIS.astype(np.int64), tc, device="cpu"))
 
 
 def test_default_device_raises_without_cuda():
