@@ -61,8 +61,31 @@ Phases (any failure exits non-zero):
                phase's real decoder input (early stop and fixed sweeps), its
                time (early stop; fixed 0, 1 and 6 sweeps), resident CTAs per
                SM, its bound.
+ 12. hetero_cell — the per-UE channel processors through the scheduler's
+               entry point, HeteroCellProcessor, at 20 MHz (106 PRB) with a
+               4-UE grant set on the 8-PRB RBG grid (QPSK DFT-s-OFDM at BG2
+               Zc = 26, 16QAM, 64QAM, and a 5-codeblock 64QAM r0.93 UE with
+               one DM-RS symbol and non-uniform E): HC_SLOTS slots at 25 dB,
+               fresh payloads every slot, DL TX -> UE RX and UE TX -> gNB RX;
+               every TB exact, K1 (wire mode) launched 8 times per slot.  Ms
+               per slot of each call, a per-UE breakdown of pusch.process and
+               the device profile of chained slots.
+ 13. hetero_harq — a 12-PRB 64QAM r0.8 UE at HARQ_SNR_DB both ways: rv 0
+               fails, rv 2 from a zero buffer fails, the combined decode is
+               exact (UL and DL).
+ 14. pusch_uci — UE 1 alone with the two UCI configurations (polar CSI with
+               CRC11 and with CRC6 + PC; short-block ACK in the reserved
+               mode): ACK, CSI and payload exact; decode_scl's time.
+ 15. mimo_ue — models/mimo.py's per-UE receiver at L = 2 (52 PRB) and L = 4
+               (36 PRB, 7 codeblocks, non-uniform E), MIMO_DRAWS draws each,
+               exact payloads, K1's f32 mode ("auto" decode) launched.
+ 16. kernels on the per-UE paths — K1 against its plain version on each
+               UE's decoder input (wire mode, BG2 Zc = 26 among them) and on
+               the MIMO receiver's (f32 mode, l <= 0 rule), and f32 mode at
+               BG2 Zc = 40; K1's time per launch at each shape, plain, bound.
 
-Prints the card (nvidia-smi name, power limit), a JSON line per phase, the
+Prints the card (nvidia-smi name, power limit), a JSON line per phase (the
+last, "total", the run's seconds from the build on), the
 {"kernels": [...]} line (K1's entry with its launches on every path), and
 last {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -101,6 +124,20 @@ ALU_OPS_PER_S = 67e12 / 2
 # (subtract, saturate, abs, min/second-min update, sign parity, magnitude
 # select, scale, sign, add, pin) — a floor, not the kernel's instruction count.
 OPS_PER_EDGE_LANE = 16
+# The per-UE paths (phases 12-16).
+HC_SLOTS = 64
+HC_PROFILE_SLOTS = 8
+# tests/test_harq_retx.py's operating point (6.5 dB at 10 MHz) moved to 20
+# MHz, where the noise spreads over nfft 1536 bins instead of 768: at 4.0 dB
+# rv 0 and rv 2 each fail alone and their combination decodes, in every one
+# of 12 noise draws per direction on the CPU (tests/test_torch_hetero_cell.py
+# pins one).
+HARQ_SNR_DB = 4.0
+UCI_CONFIGS = (
+    dict(n_ack=4, g_ack=64, n_csi1=20, g_csi1=160, n_csi2=14, g_csi2=96),
+    dict(n_ack=2, g_ack=32, g_ack_rvd=64, n_csi1=8, g_csi1=64),
+)
+MIMO_DRAWS = 8
 
 
 def check(cond, msg: str) -> None:
@@ -820,6 +857,343 @@ def phase_kernel_int8(dec, encoder, cuda_build, dev, full):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def hetero_grants(pdsch, tbs):
+    """The 4-UE grant set of the MAC scheduler at 20 MHz: spans on the 8-PRB
+    RBG grid of a 106-PRB BWP, rates from TS 38.214 Table 5.1.3.1-1."""
+    def grant(rnti, start, n, mcs, **kw):
+        m = tbs.mcs_config(mcs, "qam64")
+        return pdsch.PdschConfig(rnti=rnti, start_prb=start, nof_prb=n,
+                                 modulation=m.modulation,
+                                 target_rate=m.target_rate, **kw)
+    return [grant(0x4601, 0, 4, 2, transform_precoding=True),
+            grant(0x4602, 4, 24, 13),
+            grant(0x4603, 28, 32, 20),
+            grant(0x4604, 60, 46, 28, dmrs_symbols=(2,))]
+
+
+def grid_noise(grid, snr_db, gen):
+    """Complex AWGN on a resource grid at ``snr_db`` below unit symbol energy."""
+    import torch
+    sigma = math.sqrt(10.0 ** (-snr_db / 10.0) / 2.0)
+    return torch.complex(torch.randn(grid.shape, generator=gen, device=grid.device),
+                         torch.randn(grid.shape, generator=gen, device=grid.device)) * sigma
+
+
+def pusch_stages(pusch, pdsch, rx_grid, cfg, t, times):
+    """pusch.process (no UCI) stage by stage on one received grid: ({stage:
+    thunk}, the (C, cols*Zc) float32 decoder input)."""
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder, segmenter
+    seg, rms = pdsch._plans(cfg, 0)
+    h, nv, cfo = pusch.channel_estimate(rx_grid, cfg, t.srate, times)
+    x_hat, nv_out = pusch.equalize(rx_grid, cfg, h, nv, cfo, times)
+    llr = pusch.demap(x_hat, nv_out, cfg)
+    full = pusch.dematch(llr, seg, rms)
+    hard, _ = decoder.decode(full, seg.bg, seg.zc, NUM_ITERS, schedule="wire_auto")
+    return {
+        "estimate": lambda: pusch.channel_estimate(rx_grid, cfg, t.srate, times),
+        "equalise": lambda: pusch.equalize(rx_grid, cfg, h, nv, cfo, times),
+        "demap_quantise_descramble": lambda: pusch.demap(x_hat, nv_out, cfg),
+        "dematch": lambda: pusch.dematch(llr, seg, rms),
+        "decode": lambda: decoder.decode(full, seg.bg, seg.zc, NUM_ITERS,
+                                         schedule="wire_auto"),
+        "desegment": lambda: segmenter.desegment_tb(hard, seg),
+        "process": lambda: pusch.process(rx_grid, cfg, t.srate, times),
+    }, full
+
+
+def phase_hetero_cell(cuda_build, dec, dev):
+    """HeteroCellProcessor at 20 MHz with the 4-UE grant set: HC_SLOTS slots
+    of DL TX -> UE RX and UE TX -> gNB RX at 25 dB, every TB exact, 8 K1
+    launches per slot; per-call ms per slot, a per-UE pusch.process
+    breakdown, the device profile of chained slots."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.models import hetero_cell, pdsch, pusch
+    from srsran_edgeric_5g_tpu_torch.ops import ofdm
+    from srsran_edgeric_5g_tpu_torch.ran import numerology, tbs
+    t = numerology.slot_timing(**numerology.CELL_20MHZ)
+    cfgs = hetero_grants(pdsch, tbs)
+    proc = hetero_cell.HeteroCellProcessor(t, cfgs, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def payloads():
+        return [torch.randint(0, 2, (1, n), generator=gen, device=dev,
+                              dtype=torch.int8) for n in proc.tbs]
+
+    def slot(pay, timed=None):
+        """One slot both ways; with ``timed``, each call's host-clock ms
+        between two synchronisations is appended to timed[call]."""
+        out = {}
+        for name, fn, src in (("dl_tx", proc.process_dl_slot, None),
+                              ("dl_rx", proc.process_dl_rx_slot, "dl_tx"),
+                              ("ul_tx", proc.process_ul_tx_slot, None),
+                              ("ul_rx", proc.process_ul_slot, "ul_tx")):
+            x = pay if src is None else out[src] + awgn(out[src], SNR_DB, gen)
+            if timed is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out[name] = fn(x)
+            if timed is not None:
+                torch.cuda.synchronize()
+                timed[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    slot(payloads())                      # plans, caches, the kernel's tables
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    timed = {k: [] for k in ("dl_tx", "dl_rx", "ul_tx", "ul_rx")}
+    results = []
+    for _ in range(HC_SLOTS):
+        pay = payloads()
+        out = slot(pay, timed)
+        results.append((pay, out["dl_rx"], out["ul_rx"]))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    for i, (pay, dl, ul) in enumerate(results):
+        for d, outs in (("DL", dl), ("UL", ul)):
+            for u, (p, ok, nv, cfo) in enumerate(outs):
+                check(bool(ok.all()), f"hetero_cell slot {i} {d} UE {u}: CRC failed")
+                check(torch.equal(p, pay[u]), f"hetero_cell slot {i} {d} UE {u}: payload")
+                check(bool(torch.isfinite(nv) & torch.isfinite(cfo)),
+                      f"hetero_cell slot {i} {d} UE {u}: nv / cfo not finite")
+    k1 = launches.get(dec.KERNEL, 0)
+    check(k1 == 8 * HC_SLOTS, f"hetero_cell: {k1} K1 launches in {HC_SLOTS} slots, "
+                              f"want 8 per slot")
+    ms = {k: sum(v) / len(v) for k, v in timed.items()}
+    segs = [pdsch._plans(c, 0)[0] for c in cfgs]
+    emit("hetero_cell", cell="106PRB nfft1536 4UE grant set", slots=HC_SLOTS,
+         snr_db=SNR_DB, tbs=proc.tbs, codeblocks=[s.c for s in segs],
+         bg=[s.bg for s in segs], zc=[s.zc for s in segs],
+         e=[list(s.e) for s in segs], launches=launches, ms_per_slot=ms,
+         ms_per_slot_max={k: max(v) for k, v in timed.items()},
+         gnb_pair_ms=ms["dl_tx"] + ms["ul_rx"],
+         x_real_time_gnb_pair=1.0 / (ms["dl_tx"] + ms["ul_rx"]))
+
+    # Per-UE breakdown of pusch.process on one slot's received grid, and
+    # each UE's decoder input for the kernel phase (wire mode takes int8
+    # after the ±64 load clamp, as decode("wire_auto") converts it).
+    td = proc.process_ul_tx_slot(payloads())
+    rx_grid = ofdm.demodulate_slot(td + awgn(td, SNR_DB, gen), t, scale=1.0)
+    breakdown, inputs = [], []
+    for u, cfg in enumerate(cfgs):
+        stages, full = pusch_stages(pusch, pdsch, rx_grid, cfg, t, proc.times)
+        breakdown.append({k: cuda_ms(f, 10) for k, f in stages.items()})
+        inputs.append((f"hetero_cell UE {u}", segs[u].bg, segs[u].zc, True,
+                       torch.clamp(full, -64, 64).to(torch.int8).contiguous()))
+    emit("hetero_cell_pusch_breakdown_ms", per_ue=breakdown)
+
+    # Chained slots (no host synchronisation inside): wall time per slot and
+    # the device's busy time and idle share over them.
+    pays = [payloads() for _ in range(2 * HC_PROFILE_SLOTS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pay in pays[:HC_PROFILE_SLOTS]:
+        slot(pay)
+    torch.cuda.synchronize()
+    chained_ms = (time.perf_counter() - t0) * 1e3 / HC_PROFILE_SLOTS
+    rest = iter(pays[HC_PROFILE_SLOTS:])
+    emit("hetero_cell_device_profile", chained_ms_per_slot=chained_ms,
+         **device_profile(lambda: slot(next(rest)), HC_PROFILE_SLOTS, chained_ms))
+    return dict(launches=k1, inputs=inputs)
+
+
+def phase_hetero_harq(dev):
+    """tests/test_harq_retx.py's combined decode at 20 MHz, UL and DL: rv 0
+    fails, rv 2 from a zero buffer fails, the combined decode is exact."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.models import hetero_cell, pdsch
+    from srsran_edgeric_5g_tpu_torch.ran import numerology
+    t = numerology.slot_timing(**numerology.CELL_20MHZ)
+    cfg = pdsch.PdschConfig(rnti=0x4601, start_prb=0, nof_prb=12,
+                            modulation="qam64", target_rate=0.8)
+    proc = hetero_cell.HeteroCellProcessor(t, [cfg], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    pay = [torch.randint(0, 2, (1, proc.tbs[0]), generator=gen, device=dev,
+                         dtype=torch.int8)]
+    zeros = [torch.zeros(proc.soft_buffer_shape(0), device=dev)]
+    res = {}
+    for d, tx, rx in (("ul", proc.process_ul_tx_rv_slot, proc.process_ul_harq_slot),
+                      ("dl", proc.process_dl_rv_slot, proc.process_dl_rx_harq_slot)):
+        td1 = tx(pay, (0,))
+        _, ok1, _, _, soft1 = rx(td1 + awgn(td1, HARQ_SNR_DB, gen), zeros, (0,))[0]
+        td2 = tx(pay, (2,))
+        rx2 = td2 + awgn(td2, HARQ_SNR_DB, gen)
+        _, ok_fresh, *_ = rx(rx2, zeros, (2,))[0]
+        hat, ok_comb, _, _, soft2 = rx(rx2, [soft1], (2,))[0]
+        check(not bool(ok1.any()), f"hetero_harq {d}: rv 0 alone decoded")
+        check(not bool(ok_fresh.any()), f"hetero_harq {d}: rv 2 alone decoded")
+        check(bool(ok_comb.all()) and torch.equal(hat, pay[0]),
+              f"hetero_harq {d}: the combined decode is not exact")
+        res[d] = dict(soft_abs_mean_rv0=float(soft1.abs().mean()),
+                      soft_abs_mean_combined=float(soft2.abs().mean()))
+    emit("hetero_harq", cell="106PRB nfft1536 12PRB qam64 r0.8", snr_db=HARQ_SNR_DB,
+         tbs=proc.tbs[0], soft_buffer_shape=list(proc.soft_buffer_shape(0)), **res)
+
+
+def phase_pusch_uci(dev):
+    """UE 1 of the grant set alone with each UCI configuration at 25 dB on
+    the grid: ACK, CSI and payload exact; pusch.process's time and each UCI
+    decode's alone (decode_scl for the polar ones)."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.models import pdsch, pusch
+    from srsran_edgeric_5g_tpu_torch.ops import uci as uci_ops
+    from srsran_edgeric_5g_tpu_torch.ops import ulsch_demux
+    from srsran_edgeric_5g_tpu_torch.ran import numerology, tbs
+    t = numerology.slot_timing(**numerology.CELL_20MHZ)
+    times = [x / t.srate for x in t.cp.data_starts]
+    cfg = hetero_grants(pdsch, tbs)[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def bits(n):
+        return torch.randint(0, 2, (1, n), generator=gen, device=dev, dtype=torch.int8)
+
+    out = []
+    for ucfg in UCI_CONFIGS:
+        u = pusch.UciConfig(**ucfg)
+        pay, ack, c1 = bits(cfg.derived_tbs()), bits(u.n_ack), bits(u.n_csi1)
+        c2 = bits(u.n_csi2) if u.n_csi2 else None
+        grid = pusch.transmit(pay, cfg, t.nsymb, t.nof_subc, uci=u, ack_bits=ack,
+                              csi1_bits=c1, csi2_bits=c2)
+        rx = grid + grid_noise(grid, SNR_DB, gen)
+        r = pusch.process(rx, cfg, t.srate, times, uci=u)
+        check(bool(r.tb_crc_ok.all()) and torch.equal(r.payload, pay),
+              f"UCI {ucfg}: payload")
+        check(torch.equal(r.ack_bits, ack), f"UCI {ucfg}: ACK")
+        check(torch.equal(r.csi1_bits, c1), f"UCI {ucfg}: CSI part 1")
+        check(c2 is None or torch.equal(r.csi2_bits, c2), f"UCI {ucfg}: CSI part 2")
+        h, nv, cfo = pusch.channel_estimate(rx, cfg, t.srate, times)
+        llr = pusch.demap(*pusch.equalize(rx, cfg, h, nv, cfo, times), cfg)
+        _, ack_l, c1_l, c2_l = ulsch_demux.demultiplex(llr, pusch._uci_plan(cfg, u))
+        decode_ms = {
+            f"{name}_k{n}_e{g}": cuda_ms(lambda l=l, n=n, g=g: uci_ops.decode(l, n, g),
+                                         3, warmup=1)
+            for name, l, n, g in (("ack", ack_l, u.n_ack, u.g_ack),
+                                  ("csi1", c1_l, u.n_csi1, u.g_csi1),
+                                  ("csi2", c2_l, u.n_csi2, u.g_csi2)) if n}
+        out.append(dict(uci=ucfg, process_ms=cuda_ms(
+            lambda: pusch.process(rx, cfg, t.srate, times, uci=u), 3, warmup=1),
+            uci_decode_ms=decode_ms))
+    emit("pusch_uci", cell="106PRB UE 1 (PRB 4-27, 16QAM r0.479)", snr_db=SNR_DB,
+         tbs=cfg.derived_tbs(), configs=out)
+
+
+def mimo_channels(n_l):
+    """tests/test_mimo.py's mixing channels: the 2x2 of
+    test_2x2_mixing_channel and the 4x4 of test_4x4_mixing_channel."""
+    import numpy as np
+    if n_l == 2:
+        return np.array([[1.0 + 0.2j, 0.45 - 0.3j],
+                         [-0.35 + 0.4j, 0.9 - 0.1j]], dtype=np.complex64)
+    return (np.eye(4) + 0.3 * np.exp(1j * 0.7) * np.eye(4, k=1)
+            + 0.25 * np.exp(-1j * 1.1) * np.eye(4, k=-1)
+            + 0.15 * np.exp(1j * 2.0) * np.eye(4, k=2)).astype(np.complex64)
+
+
+def phase_mimo_ue(cuda_build, dec, dev):
+    """models/mimo.py: process_mimo -> static LxL channel -> receive_mimo at
+    L = 2 (52 PRB, 27 dB) and L = 4 (36 PRB from PRB 52, 30 dB), 64QAM r0.5,
+    MIMO_DRAWS draws each; exact payloads, K1's f32 mode launched."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.models import mimo, pdsch
+    from srsran_edgeric_5g_tpu_torch.ran import numerology
+    t = numerology.slot_timing(**numerology.CELL_20MHZ)
+    times = [x / t.srate for x in t.cp.data_starts]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    points = []
+    for n_l, nprb, start, snr_db in ((2, 52, 0, 27.0), (4, 36, 52, 30.0)):
+        cfg = pdsch.PdschConfig(rnti=0x4605, start_prb=start, nof_prb=nprb,
+                                modulation="qam64", target_rate=0.5)
+        h = torch.as_tensor(mimo_channels(n_l), device=dev)
+        seg, _ = mimo._plans(cfg, 0, n_l)
+        draws = []
+        for _ in range(MIMO_DRAWS):
+            pay = torch.randint(0, 2, (1, mimo.derived_tbs(cfg, n_l)), generator=gen,
+                                device=dev, dtype=torch.int8)
+            rx = torch.einsum("ap,psk->ask", h, mimo.process_mimo(
+                pay, cfg, t.nsymb, t.nof_subc, n_layers=n_l))
+            sig = (rx.abs() ** 2).sum() / (rx.abs() > 0).sum()
+            rx = rx + torch.complex(
+                torch.randn(rx.shape, generator=gen, device=dev),
+                torch.randn(rx.shape, generator=gen, device=dev)
+            ) * torch.sqrt(sig * 10.0 ** (-snr_db / 10.0) / 2.0)
+            draws.append((pay, rx))
+        mimo.receive_mimo(draws[0][1], cfg, t.srate, times, n_layers=n_l)   # warm
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        res = [mimo.receive_mimo(rx, cfg, t.srate, times, n_layers=n_l)
+               for _, rx in draws]
+        torch.cuda.synchronize()
+        rx_ms = (time.perf_counter() - t0) * 1e3 / MIMO_DRAWS
+        launches = dict(cuda_build.LAUNCHES)
+        for i, ((pay, _), r) in enumerate(zip(draws, res)):
+            check(bool(r.tb_crc_ok.all()) and torch.equal(r.payload, pay),
+                  f"mimo_ue L={n_l} draw {i}: payload")
+        check(launches.get(dec.KERNEL, 0) == MIMO_DRAWS,
+              f"mimo_ue L={n_l}: {launches} (want one K1 launch per TB)")
+        full, _, _ = mimo.decoder_input(draws[0][1], cfg, times, n_layers=n_l)
+        points.append(dict(
+            n_layers=n_l, nof_prb=nprb, start_prb=start, snr_db=snr_db,
+            tbs=mimo.derived_tbs(cfg, n_l), codeblocks=seg.c, bg=seg.bg, zc=seg.zc,
+            e=list(seg.e), launches=launches, receive_ms_per_tb=rx_ms,
+            process_ms=cuda_ms(lambda: mimo.process_mimo(
+                draws[0][0], cfg, t.nsymb, t.nof_subc, n_layers=n_l), 5),
+            input=(f"mimo_ue L={n_l}", seg.bg, seg.zc, False, full.contiguous())))
+    emit("mimo_ue", cell="106PRB nfft1536 qam64 r0.5", draws=MIMO_DRAWS,
+         points=[{k: v for k, v in p.items() if k != "input"} for p in points])
+    return dict(launches=sum(p["launches"].get(dec.KERNEL, 0) for p in points),
+                inputs=[p["input"] for p in points])
+
+
+def phase_per_ue_kernel(dec, path, inputs, launches):
+    """K1 on each per-UE decoder input (wire mode: the heterogeneous cell's
+    UEs; f32 mode with the l <= 0 rule: the MIMO receiver's, and a synthetic
+    BG2 Zc = 40 batch): equal hard bits, ok and sweeps to the plain version
+    at early stop and fixed sweeps; K1's time per launch at each shape, the
+    plain version's, the bound.  The path's figures are sums over its
+    shapes (one launch each)."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc.graph import get_graph
+    rows, max_err = [], 0
+    for name, bg, zc, wire, x in inputs:
+        strict = None if wire else False
+        for early_stop in (False, True):
+            k = dec.decode_layered(x, bg, zc, NUM_ITERS, wire=wire,
+                                   early_stop=early_stop, strict=strict)
+            p = dec.decode_layered_plain(x, bg, zc, NUM_ITERS, wire=wire,
+                                         early_stop=early_stop, strict=strict)
+            err = int((k[0].int() - p[0].int()).abs().max())
+            max_err = max(max_err, err)
+            same = all(torch.equal(a, b) for a, b in zip(k, p))
+            check(same, f"{name} BG{bg} Zc={zc} early_stop={early_stop}: kernel != "
+                        f"plain (max |hard diff| {err})")
+            emit("kernel_vs_plain", case=f"{name} BG{bg} Zc={zc}",
+                 mode="wire" if wire else "f32 l<=0", early_stop=early_stop,
+                 codeblocks=x.shape[0], equal=same, ok=int(k[1].sum()),
+                 mean_sweeps=float(k[2].float().mean()))
+        g = get_graph(bg, zc)
+        _, _, sweeps = dec.decode_layered(x, bg, zc, NUM_ITERS, wire=wire,
+                                          early_stop=True, strict=strict)
+
+        def run(fn=dec.decode_layered, x=x, bg=bg, zc=zc, wire=wire, strict=strict):
+            return fn(x, bg, zc, NUM_ITERS, wire=wire, early_stop=True, strict=strict)
+
+        n_bytes = x.numel() * x.element_size() + x.shape[0] * (g.kb * zc + 1 + 4)
+        bound_ms, bound_by = kernel_bound(g, zc, int(sweeps.sum()), n_bytes)
+        rows.append(dict(case=name, bg=bg, zc=zc, mode="wire" if wire else "f32 l<=0",
+                         codeblocks=x.shape[0], sweeps_total=int(sweeps.sum()),
+                         ms=cuda_ms(run, 50),
+                         plain_ms=cuda_ms(lambda: run(dec.decode_layered_plain), 3,
+                                          warmup=1),
+                         bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by))
+    emit("kernel_time_per_ue", kernel=dec.KERNEL, path=path, shapes=rows)
+    ms, plain, bound = (sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms"))
+    return dict(launches=launches, max_abs_err=max_err, ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by="operations" if all(
+                    r["bound_by"] == "operations" for r in rows) else "bytes",
+                shapes=[{k: r[k] for k in ("case", "zc", "ms", "plain_ms", "bound_ms")}
+                        for r in rows])
+
+
 KERNEL_NAME = re.compile(r"(layered_kernel|int8_tiled_sweep_kernel)(?:ILi(\d)E)?")
 
 
@@ -892,7 +1266,7 @@ def main() -> int:
                           text=True, check=True, timeout=60).stdout.strip()
     card = card.splitlines()[0]
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     cuda_build.build_all()
     for name in cuda_build.KERNELS:
         cuda_build.load(name)
@@ -924,6 +1298,20 @@ def main() -> int:
     }
     per_path = {name: phase_path_kernel(decoder_cuda, name, path)
                 for name, path in paths.items()}
+    # The per-UE channel processors: K1 in wire mode per UE and
+    # in f32 mode through the MIMO receiver's decode("auto").
+    hc = phase_hetero_cell(cuda_build, decoder_cuda, dev)
+    phase_hetero_harq(dev)
+    phase_pusch_uci(dev)
+    mu = phase_mimo_ue(cuda_build, decoder_cuda, dev)
+    per_path["hetero_cell"] = phase_per_ue_kernel(
+        decoder_cuda, "hetero_cell", hc["inputs"], hc["launches"])
+    per_path["mimo_ue"] = phase_per_ue_kernel(
+        decoder_cuda, "mimo_ue", mu["inputs"], mu["launches"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    zc40_f32, _ = synthetic_wire(encoder, dev, 2, 40, 64, 1.5, gen)
+    zc40 = phase_per_ue_kernel(decoder_cuda, "synthetic",
+                               [("synthetic B=64", 2, 40, False, zc40_f32)], 0)
 
     leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "srsran_edgeric_5g_tpu" or m.startswith("srsran_edgeric_5g_tpu.")]
@@ -940,7 +1328,8 @@ def main() -> int:
         "name": decoder_cuda.KERNEL, "route": "cuda", "source": src,
         "replaces": "srsran_edgeric_5g_tpu/ops/ldpc/decoder_pallas.py:224",
         "launches": fcx["launches"].get(decoder_cuda.KERNEL, 0),
-        "max_abs_err": max(max_err, *(v["max_abs_err"] for v in per_path.values())),
+        "max_abs_err": max(max_err, zc40["max_abs_err"],
+                           *(v["max_abs_err"] for v in per_path.values())),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
         "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
         "library_ms": None, "launches_per_path": launches_per_path,
@@ -953,6 +1342,7 @@ def main() -> int:
         "bound_by": k2["bound_by"], "library_ms": None,
     }]
     check(all(math.isfinite(k["ms"]) and k["ms"] > 0 for k in kernels), "kernel times")
+    emit("total", seconds=time.perf_counter() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,10 +10,13 @@
 // _iterate_kernel, :53-97).  Three arithmetic modes (template parameter M):
 //
 //  * kF32  (0): K1's arithmetic — normalised min-sum with scale 0.8,
-//    R = (sgn*st) * (mag*scale), L = t + R, hard bit post < 0.  Every multiply
-//    and add is rounded separately (__fmul_rn / __fadd_rn, and the library is
-//    built with --fmad=false), so the result is bit-equal to the plain
-//    PyTorch version.
+//    R = (sgn*st) * (mag*scale), L = t + R, hard bit post < 0
+//    (decode_pallas), or L <= 0 when the launch asks for it (hard_le: the
+//    reference's "layered" schedule, which its decode("auto") runs off the
+//    TPU).  The two rules differ only on an exact-zero posterior.  Every
+//    multiply and add is rounded separately (__fmul_rn / __fadd_rn, and the
+//    library is built with --fmad=false), so the result is bit-equal to the
+//    plain PyTorch version.
 //  * kWire (1): the semantics of the reference's layered_wire schedule
 //    (srsran_edgeric_5g_tpu/ops/ldpc/decoder.py:212-273 with
 //    _minsum(scale_floor=True)), which the main path's decode("wire_auto")
@@ -195,9 +198,11 @@ struct Tables {
   const int32_t* edge_shift;
 };
 
+// le: the f32 mode's hard rule L <= 0 (else L < 0); the other modes fix it.
 template <int M>
-__device__ __forceinline__ int hard_bit(typename Types<M>::L v) {
+__device__ __forceinline__ int hard_bit(typename Types<M>::L v, bool le) {
   if constexpr (M == kWire) return v <= 0;
+  else if constexpr (M == kF32) return le ? v <= 0 : v < 0;
   else return v < 0;
 }
 
@@ -396,11 +401,11 @@ __device__ __forceinline__ void sweep(typename Types<M>::L* s_l, uint32_t* r_wor
 template <int M>
 __device__ int syndrome_violated(const typename Types<M>::L* s_l, uint32_t* s_hb,
                                  const uint16_t* s_cs, const uint16_t* s_rs, int rows,
-                                 int cols, int zc) {
+                                 int cols, int zc, bool le) {
   const int z = threadIdx.x, lane = z & 31, nw = blockDim.x >> 5;
 #pragma unroll 4
   for (int c = 0; c < cols; ++c) {
-    const bool bit = z < zc && hard_bit<M>(s_l[c * zc + z]);
+    const bool bit = z < zc && hard_bit<M>(s_l[c * zc + z], le);
     const uint32_t m = __ballot_sync(0xffffffffu, bit);
     if (lane == 0) s_hb[c * nw + (z >> 5)] = m;
   }
@@ -479,7 +484,7 @@ __device__ __forceinline__ void load_llrs(typename Types<M>::L* s_l,
 // Hard bits of the first n entries of L; 16 bytes a store when `vec`.
 template <int M>
 __device__ __forceinline__ void store_hard(const typename Types<M>::L* s_l, int8_t* dst, int n,
-                                           bool vec) {
+                                           bool vec, bool le) {
   using LT = typename Types<M>::L;
   if (vec) {
     union { uint4 v[sizeof(LT)]; LT e[16]; } in;
@@ -489,12 +494,12 @@ __device__ __forceinline__ void store_hard(const typename Types<M>::L* s_l, int8
 #pragma unroll
       for (int q = 0; q < int(sizeof(LT)); ++q) in.v[q] = s4[k * int(sizeof(LT)) + q];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) out.b[i] = static_cast<int8_t>(hard_bit<M>(in.e[i]));
+      for (int i = 0; i < 16; ++i) out.b[i] = static_cast<int8_t>(hard_bit<M>(in.e[i], le));
       reinterpret_cast<uint4*>(dst)[k] = out.v;
     }
   } else {
     for (int i = threadIdx.x; i < n; i += blockDim.x)
-      dst[i] = static_cast<int8_t>(hard_bit<M>(s_l[i]));
+      dst[i] = static_cast<int8_t>(hard_bit<M>(s_l[i], le));
   }
 }
 
@@ -520,7 +525,7 @@ layered_kernel(const typename Types<M>::In* __restrict__ llr,
                int32_t* __restrict__ sweeps_out, unsigned char* __restrict__ r_state,
                Tables tb, int rows, int cols, int kb, int n_edges, int n_big, int zc,
                int num_iters,
-               Scale sc, int early_stop, int vec_in, int vec_out) {
+               Scale sc, int early_stop, int hard_le, int vec_in, int vec_out) {
   using LT = typename Types<M>::L;
   extern __shared__ __align__(16) unsigned char smem[];
   const int z = threadIdx.x;
@@ -545,14 +550,14 @@ layered_kernel(const typename Types<M>::In* __restrict__ llr,
     if (it == 0) sweep<M, true>(s_l, r_words, r_big, s_edge, s_rs, s_sync, rows, zc, z, sc);
     else sweep<M, false>(s_l, r_words, r_big, s_edge, s_rs, s_sync, rows, zc, z, sc);
     if (early_stop) {
-      violated = syndrome_violated<M>(s_l, s_hb, s_cs, s_rs, rows, cols, zc);
+      violated = syndrome_violated<M>(s_l, s_hb, s_cs, s_rs, rows, cols, zc, hard_le);
       if (!violated) { ++it; break; }
     }
   }
   if (!early_stop || it == 0)
-    violated = syndrome_violated<M>(s_l, s_hb, s_cs, s_rs, rows, cols, zc);
+    violated = syndrome_violated<M>(s_l, s_hb, s_cs, s_rs, rows, cols, zc, hard_le);
 
-  store_hard<M>(s_l, hard + size_t(blockIdx.x) * kb * zc, kb * zc, vec_out);
+  store_hard<M>(s_l, hard + size_t(blockIdx.x) * kb * zc, kb * zc, vec_out, hard_le);
   if (z == 0) {
     ok_out[blockIdx.x] = violated ? 0 : 1;
     sweeps_out[blockIdx.x] = it;
@@ -594,9 +599,9 @@ int8_tiled_sweep_kernel(const int8_t* __restrict__ llr, int16_t* __restrict__ l_
   if (it == 0) sweep<kInt8, true>(s_l, r_words, r_big, s_edge, s_rs, s_sync, rows, zc, z, {});
   else sweep<kInt8, false>(s_l, r_words, r_big, s_edge, s_rs, s_sync, rows, zc, z, {});
   copy_elems(gl, s_l, n, vec_state);
-  const int violated = syndrome_violated<kInt8>(s_l, s_hb, s_cs, s_rs, rows, cols, zc);
+  const int violated = syndrome_violated<kInt8>(s_l, s_hb, s_cs, s_rs, rows, cols, zc, false);
 
-  store_hard<kInt8>(s_l, hard + size_t(blockIdx.x) * kb * zc, kb * zc, vec_out);
+  store_hard<kInt8>(s_l, hard + size_t(blockIdx.x) * kb * zc, kb * zc, vec_out, false);
   if (z == 0) {
     if (violated) viol[it * n_tiles + tile] = 1;   // every writer stores 1
     ok_out[blockIdx.x] = violated ? 0 : 1;
@@ -638,7 +643,7 @@ inline bool aligned16(const void* p, size_t row_bytes) {
 template <int M>
 int launch(const void* llr, int8_t* hard, uint8_t* ok, int32_t* sweeps, void* r_state,
            Tables tb, int batch, int rows, int cols, int kb, int n_edges, int n_big, int zc, int num_iters,
-           Scale sc, int early_stop, cudaStream_t stream) {
+           Scale sc, int early_stop, int hard_le, cudaStream_t stream) {
   using In = typename Types<M>::In;
   const size_t smem = layout<M>(rows, cols, n_edges, n_big, zc, M != kF32).total;
   cudaError_t err = allow_max_smem<M>(reinterpret_cast<const void*>(layered_kernel<M>));
@@ -646,7 +651,7 @@ int launch(const void* llr, int8_t* hard, uint8_t* ok, int32_t* sweeps, void* r_
   layered_kernel<M><<<batch, threads_for(zc), smem, stream>>>(
       static_cast<const In*>(llr), hard, ok, sweeps, static_cast<unsigned char*>(r_state),
       tb, rows, cols, kb, n_edges, n_big, zc, num_iters, sc,
-      early_stop, aligned16(llr, size_t(cols) * zc * sizeof(In)),
+      early_stop, hard_le, aligned16(llr, size_t(cols) * zc * sizeof(In)),
       aligned16(hard, size_t(kb) * zc));
   return int(cudaGetLastError());
 }
@@ -699,6 +704,8 @@ int ldpc_layered_blocks_per_sm(int mode, int rows, int cols, int n_edges, int n_
 // a barrier after the row: the next row shares a column with a row since the
 // last barrier, or it is the last row), edge_col and edge_shift (E, row-major,
 // columns ascending).  Row degrees must be in {3..10, 19}.
+// hard_le: 1 gives the f32 mode the hard rule L <= 0 (else L < 0); the wire
+// mode is always L <= 0 and the int8 mode L < 0.
 // Outputs: hard (batch, kb * zc) int8, ok (batch,) uint8, sweeps (batch,) int32.
 // Returns cudaGetLastError() after the launch (0 = launched).
 int ldpc_layered_decode(const void* llr, int mode, int8_t* hard, uint8_t* ok,
@@ -706,14 +713,15 @@ int ldpc_layered_decode(const void* llr, int mode, int8_t* hard, uint8_t* ok,
                         const int32_t* row_sync, const int32_t* edge_col,
                         const int32_t* edge_shift, int batch,
                         int rows, int cols, int kb, int n_edges, int n_big, int zc,
-                        int num_iters, float scale, int scale16, int early_stop, void* stream) {
+                        int num_iters, float scale, int scale16, int early_stop,
+                        int hard_le, void* stream) {
   if (batch == 0) return 0;
   if (zc < 1 || zc > kMaxZc) return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const Scale sc{scale, scale16};
   const Tables tb{row_start, row_sync, edge_col, edge_shift};
 #define LDPC_ARGS llr, hard, ok, sweeps, r_state, tb, batch, rows, cols, kb, n_edges, n_big, \
-    zc, num_iters, sc, early_stop, s
+    zc, num_iters, sc, early_stop, hard_le, s
   switch (mode) {
     case kF32: return launch<kF32>(LDPC_ARGS);
     case kWire: return launch<kWire>(LDPC_ARGS);

@@ -3,9 +3,9 @@
 Port of ``srsran_edgeric_5g_tpu/ops/ldpc/decoder.py``: the decode plan, the
 min-sum check update, the gather formulation of the ``layered`` and
 ``layered_wire`` schedules with their batch-granularity early stop, the
-parity check, and the ``decode`` dispatch.  ``wire_auto`` and ``pallas`` on
-a CUDA tensor run the hand-written kernel in ``decoder_cuda``; every other
-schedule of the reference belongs to a later slice of the port.
+parity check, and the ``decode`` dispatch.  ``auto``, ``wire_auto`` and
+``pallas`` on a CUDA tensor run the hand-written kernel in ``decoder_cuda``;
+every other schedule of the reference belongs to a later slice of the port.
 
 State per layer r: posterior LLRs L (B, cols*Zc) and check-to-variable
 messages R (B, rows, max_deg, Zc).  Update:
@@ -30,7 +30,7 @@ DEFAULT_ITERS = 6  # reference default (ldpc_decoder_impl.h:216)
 
 # Schedules of the reference that this slice does not port yet.
 _LATER_SLICE = frozenset({
-    "auto", "flooding", "layered_rolls", "layered_rolls_bf16",
+    "flooding", "layered_rolls", "layered_rolls_bf16",
     "layered_rolls_wire", "layered_rolls_wire_i8s", "layered_rolls_mixed",
     "layered_rolls_i8", "layered_rolls_cr", "layered_rolls_cr_f32",
     "layered_waves", "layered_waves_bf16",
@@ -119,8 +119,23 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
         contract (wire_quantize and the saturated dematch), so a float input
         goes to the kernel as int8 after the ±64 load clamp.
       * 'pallas': the kernel's f32 mode (``decode_pallas`` semantics: fixed
-        sweeps, hard bits ``post < 0``); its plain version on a CPU tensor.
+        sweeps, hard bits ``post < 0``, Zc >= 64 on the card); its plain
+        version on a CPU tensor.
+      * 'auto': the reference resolves it to 'layered' on every backend but
+        the TPU.  On a CPU tensor it is 'layered'; on a CUDA tensor the
+        kernel's f32 mode with 'layered''s hard rule ``l <= 0`` at every
+        lifting size, exiting per codeblock (the batch exit of 'layered'
+        gives the same bits on every input measured: ROADMAP.md Queue C).
     """
+    if schedule == "auto":
+        if llrs.device.type == "cpu":
+            schedule = "layered"
+        else:
+            from .decoder_cuda import decode_layered
+            hard, ok, _ = decode_layered(llrs.to(torch.float32).contiguous(),
+                                         bg, zc, num_iters, scaling, wire=False,
+                                         early_stop=early_stop, strict=False)
+            return hard, ok
     if schedule in ("wire_auto", "pallas"):
         from .decoder_cuda import decode_layered
         if schedule == "pallas":
@@ -139,8 +154,8 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
         return hard, ok
     if schedule in _LATER_SLICE:
         raise NotImplementedError(
-            f"decode schedule {schedule!r} is not ported yet; this slice "
-            "ports 'layered', 'layered_wire', 'wire_auto' and 'pallas' "
+            f"decode schedule {schedule!r} is not ported yet; the port has "
+            "'auto', 'layered', 'layered_wire', 'wire_auto' and 'pallas' "
             "(ROADMAP.md, Queue A/B lists the later slices)")
     if schedule not in ("layered", "layered_wire"):
         raise ValueError(f"unknown decode schedule {schedule!r}")

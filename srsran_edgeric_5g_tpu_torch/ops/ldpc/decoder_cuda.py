@@ -9,8 +9,12 @@ syndrome; its header says what bounds it).  ``decode_layered`` (K1) has two
 modes:
 
   * f32 (``wire=False``): ``decode_pallas``'s normalised min-sum
-    (α = 0.8, hard bits ``post < 0``), which ``decode(schedule="pallas")``
-    computes; Zc >= ``MIN_ZC`` on the card, as ``decode_pallas`` asserts;
+    (α = 0.8).  With ``strict`` (the default) its hard bits are
+    ``post < 0`` and the card takes Zc >= ``MIN_ZC``, as ``decode_pallas``
+    asserts: ``decode(schedule="pallas")``.  With ``strict=False`` the hard
+    bits follow the layered schedule's ``l <= 0`` and every NR lifting size
+    runs: ``decode(schedule="auto")``, which the per-UE MIMO receiver
+    calls;
   * wire (``wire=True``): the reference's ``layered_wire`` semantics on int8
     wire-domain input, which the main path's ``decode(schedule="wire_auto")``
     computes, at every NR lifting size.
@@ -56,11 +60,13 @@ SMALL_DEG = 11   # kSmallDeg: rows above it keep sm2 in an extra byte
 MAX_WIRE_SCALING = 1.0
 
 
-def cuda_supported(zc: int, mode: int) -> bool:
-    """Whether the kernel takes lifting size ``zc`` in ``mode``: wire mode
-    every NR lifting size, f32 and int8 Zc >= MIN_ZC (the floor that
-    ``decode_pallas`` and ``decode_pallas_int8`` assert)."""
-    return (1 if mode == MODE_WIRE else MIN_ZC) <= zc <= MAX_ZC
+def cuda_supported(zc: int, mode: int, strict: bool = True) -> bool:
+    """Whether the kernel takes lifting size ``zc`` in ``mode``: wire mode,
+    and f32 mode with the ``l <= 0`` rule (``strict=False``), every NR
+    lifting size; ``decode_pallas``'s f32 mode and int8 Zc >= MIN_ZC (the
+    floor that ``decode_pallas`` and ``decode_pallas_int8`` assert)."""
+    every = mode == MODE_WIRE or (mode == MODE_F32 and not strict)
+    return (1 if every else MIN_ZC) <= zc <= MAX_ZC
 
 
 def _check_input(llrs: torch.Tensor, bg: int, zc: int, wire: bool) -> None:
@@ -74,33 +80,47 @@ def _check_input(llrs: torch.Tensor, bg: int, zc: int, wire: bool) -> None:
                          f"got {tuple(llrs.shape)}")
 
 
+def _strict(wire: bool, strict: bool | None) -> bool:
+    """The hard rule: ``post < 0`` (strict) or ``l <= 0``.  Wire mode is
+    always ``l <= 0``; f32 mode is strict unless asked otherwise."""
+    if strict is None:
+        return not wire
+    if wire and strict:
+        raise ValueError("wire mode's hard rule is l <= 0 (strict=False)")
+    return strict
+
+
 def decode_layered(llrs: torch.Tensor, bg: int, zc: int,
                    num_iters: int = DEFAULT_ITERS,
                    scaling: float = DEFAULT_SCALING,
-                   wire: bool = False, early_stop: bool = False):
+                   wire: bool = False, early_stop: bool = False,
+                   strict: bool | None = None):
     """Decode (B, cols*Zc) LLRs -> (hard (B, kb*Zc) int8, ok (B,) bool,
     sweeps (B,) int32 run per codeblock).
 
-    ``wire=True`` takes int8 wire-domain LLRs, ``wire=False`` float32.  A
-    CUDA tensor runs the kernel (or raises); a CPU tensor runs the plain
-    version."""
+    ``wire=True`` takes int8 wire-domain LLRs, ``wire=False`` float32.
+    ``strict`` picks the f32 mode's hard rule (``post < 0``, the default;
+    False: ``l <= 0``).  A CUDA tensor runs the kernel (or raises); a CPU
+    tensor runs the plain version."""
     _check_input(llrs, bg, zc, wire)
+    strict = _strict(wire, strict)
     if llrs.device.type == "cpu":
         return decode_layered_plain(llrs, bg, zc, num_iters, scaling, wire,
-                                    early_stop)
+                                    early_stop, strict)
     out = _launch(llrs, MODE_WIRE if wire else MODE_F32, bg, zc, num_iters,
-                  scaling, early_stop)
+                  scaling, early_stop, strict=strict)
     cuda_build.LAUNCHES[KERNEL] += 1
     return out
 
 
 def _check_cuda(llrs: torch.Tensor, bg: int, zc: int, mode: int,
-                scaling: float) -> None:
+                scaling: float, strict: bool) -> None:
     if llrs.device.type != "cuda":
         raise ValueError(f"no {KERNEL} kernel for device {llrs.device}")
-    if not cuda_supported(zc, mode):
+    if not cuda_supported(zc, mode, strict):
         raise ValueError(f"{KERNEL} mode {mode} takes Zc <= {MAX_ZC}, and "
-                         f"Zc >= {MIN_ZC} outside wire mode; got {zc}")
+                         f"Zc >= {MIN_ZC} in int8 mode and in f32 mode with "
+                         f"the post < 0 rule; got {zc}")
     if not llrs.is_contiguous():
         raise ValueError("LLRs must be contiguous")
     degrees = set(_row_degrees(bg, zc))
@@ -122,12 +142,14 @@ def _n_big(bg: int, zc: int) -> int:
     return int((_row_degrees(bg, zc) > SMALL_DEG).sum())
 
 
-def _launch(llrs, mode, bg, zc, num_iters, scaling, early_stop, b_tile=1):
+def _launch(llrs, mode, bg, zc, num_iters, scaling, early_stop, b_tile=1,
+            strict=True):
     """Run the kernel on a CUDA tensor: the fused path (all sweeps in one
     launch, per-codeblock exit), or for K2 with ``early_stop`` and
     ``b_tile`` > 1 the tiled path (one launch per sweep, per-tile exit).
+    ``strict=False`` gives the f32 mode the hard rule ``l <= 0``.
     Returns (hard, ok, sweeps)."""
-    _check_cuda(llrs, bg, zc, mode, scaling)
+    _check_cuda(llrs, bg, zc, mode, scaling, strict)
     g = get_graph(bg, zc)
     dev = llrs.device
     b = llrs.shape[0]
@@ -160,7 +182,8 @@ def _launch(llrs, mode, bg, zc, num_iters, scaling, early_stop, b_tile=1):
                 llrs.data_ptr(), mode, hard.data_ptr(), ok.data_ptr(),
                 sweeps.data_ptr(),
                 0 if r_state is None else r_state.data_ptr(), *tables,
-                b, *graph, num_iters, *scale, int(early_stop), stream)
+                b, *graph, num_iters, *scale, int(early_stop),
+                int(mode == MODE_F32 and not strict), stream)
     if rc != 0:
         smem = lib.ldpc_layered_smem_bytes(mode, g.rows, g.cols, g.num_edges,
                                            n_big, zc)
@@ -181,7 +204,7 @@ def _library() -> ctypes.CDLL:
     lib.ldpc_layered_blocks_per_sm.argtypes = [i32] * 6
     lib.ldpc_layered_blocks_per_sm.restype = i32
     lib.ldpc_layered_decode.argtypes = (
-        [ptr, i32] + [ptr] * 8 + [i32] * 8 + [ctypes.c_float, i32, i32, ptr])
+        [ptr, i32] + [ptr] * 8 + [i32] * 8 + [ctypes.c_float, i32, i32, i32, ptr])
     lib.ldpc_layered_decode.restype = i32
     lib.ldpc_int8_decode_tiled.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
     lib.ldpc_int8_decode_tiled.restype = i32
@@ -228,17 +251,19 @@ def row_barriers(bg: int, zc: int) -> np.ndarray:
 def decode_layered_plain(llrs: torch.Tensor, bg: int, zc: int,
                          num_iters: int = DEFAULT_ITERS,
                          scaling: float = DEFAULT_SCALING,
-                         wire: bool = False, early_stop: bool = False):
+                         wire: bool = False, early_stop: bool = False,
+                         strict: bool | None = None):
     """The kernel's function in plain PyTorch (any device).
 
     f32 mode follows ``_make_kernel`` (its running min / second-min with the
-    ``a == m1`` rule gives the same messages as the argmin form used here);
-    wire mode follows ``layered_wire``.  With ``early_stop`` a codeblock stops
-    once its own syndrome is zero, as each CTA of the kernel does."""
+    ``a == m1`` rule gives the same messages as the argmin form used here),
+    with hard bits ``post < 0``, or ``l <= 0`` when ``strict`` is False;
+    wire mode follows ``layered_wire``.  With ``early_stop`` a codeblock
+    stops once its own syndrome is zero, as each CTA of the kernel does."""
     _check_input(llrs, bg, zc, wire)
+    strict = _strict(wire, strict)
     plan = get_decode_plan(bg, zc)
     l, r_msgs = init_state(llrs, plan, wire)
-    strict = not wire
     b = llrs.shape[0]
     sweeps = torch.zeros((b,), dtype=torch.int32, device=llrs.device)
     active = torch.arange(b, device=llrs.device)

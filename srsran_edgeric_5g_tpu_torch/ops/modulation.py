@@ -105,6 +105,11 @@ def demodulate_soft(symbols: torch.Tensor, noise_var: torch.Tensor,
     return quantize_llrs(llrs, RANGE_LIMIT_PSK if qm <= 2 else RANGE_LIMIT)
 
 
+def hard_decision(llrs: torch.Tensor) -> torch.Tensor:
+    """LLR (positive <=> bit 0) -> hard bits {0, 1} int8 (ties -> 0)."""
+    return (llrs < 0).to(torch.int8)
+
+
 def wire_quantize(llrs: torch.Tensor, modulation: str) -> torch.Tensor:
     """The reference's int8 wire quantisation kept in float dtype: clip to
     the constellation's range limit, scale to ±120 integer steps."""

@@ -1,8 +1,10 @@
-"""Polar rate matching (TS 38.212 §5.4.1).
+"""Polar rate matching / dematching (TS 38.212 §5.4.1).
 
-Port of ``rate_match`` in ``srsran_edgeric_5g_tpu/ops/polar/rate_match.py``:
-sub-block interleave + puncture / shorten / repeat (+ the UCI triangular
-channel interleaver) fused into one precomputed gather.
+Port of ``srsran_edgeric_5g_tpu/ops/polar/rate_match.py``: sub-block
+interleave + puncture / shorten / repeat (+ the UCI triangular channel
+interleaver) fused into one precomputed gather, and the LLR inverse with
+repetition soft-combining and the neutral values of punctured (LLR 0) and
+shortened (large positive LLR, known zero) positions.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import numpy as np
 import torch
 
 from .code import PolarCode
+
+SHORT_LLR = 1e9  # effectively-infinite positive LLR for shortened bits
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,3 +64,21 @@ def _index_on(code: PolarCode, device: torch.device) -> torch.Tensor:
 def rate_match(codeword: torch.Tensor, code: PolarCode) -> torch.Tensor:
     """(B, N) mother codeword -> (B, E) transmitted bits."""
     return codeword[:, _index_on(code, codeword.device)]
+
+
+def rate_dematch(llrs: torch.Tensor, code: PolarCode) -> torch.Tensor:
+    """(B, E) received LLRs -> (B, N) mother-code LLRs (float32).
+
+    Repeated positions accumulate; punctured positions get 0; shortened
+    positions get SHORT_LLR (the bit is known to be 0)."""
+    b = llrs.shape[0]
+    sel = _index_on(code, llrs.device)
+    x = llrs.to(torch.float32)
+    if code.rm_mode == "shorten":
+        # Transmitted positions are distinct: overwrite the +inf base.
+        base = torch.full((b, code.nof_bits), SHORT_LLR, dtype=torch.float32,
+                          device=llrs.device)
+        base[:, sel] = x
+        return base
+    base = torch.zeros((b, code.nof_bits), dtype=torch.float32, device=llrs.device)
+    return base.index_add_(1, sel, x)

@@ -118,3 +118,9 @@ def slot_timing(nof_prb: int, nfft: int, mu: int = 0, slot_in_subframe: int = 0,
         srate=sample_rate(nfft, mu),
         cp=cp_timing(nfft, mu, slot_in_subframe, extended_cp),
     )
+
+
+# The reference's cell configurations (its zmq multi-UE config): 10 MHz /
+# 52 PRB at 11.52 Msps and 20 MHz / 106 PRB at 23.04 Msps, both 15 kHz SCS.
+CELL_10MHZ = dict(nof_prb=52, nfft=768, mu=0)
+CELL_20MHZ = dict(nof_prb=106, nfft=1536, mu=0)

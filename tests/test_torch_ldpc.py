@@ -176,8 +176,9 @@ def test_check_parity():
 
 
 def test_decode_dispatch():
-    """wire_auto on a CPU tensor is layered_wire; pallas is the kernel's f32
-    plain version; unported schedules raise NotImplementedError."""
+    """wire_auto on a CPU tensor is layered_wire, auto is layered; pallas is
+    the kernel's f32 plain version; unported schedules raise
+    NotImplementedError."""
     bg, zc = 2, 128
     msgs, llr, wire = _awgn_llrs(bg, zc, 4, 2.0, seed=3)
     a = tdec.decode(torch.as_tensor(wire), bg, zc, schedule="wire_auto")
@@ -188,7 +189,10 @@ def test_decode_dispatch():
     hk, okk, _ = tdc.decode_layered(torch.as_tensor(llr), bg, zc, num_iters=4)
     assert torch.equal(hp, hk) and torch.equal(okp, okk)
     np.testing.assert_array_equal(hp.numpy(), msgs)
-    for name in ("auto", "flooding", "layered_rolls_wire", "layered_rolls_i8"):
+    for u, v in zip(tdec.decode(torch.as_tensor(llr), bg, zc, schedule="auto"),
+                    tdec.decode(torch.as_tensor(llr), bg, zc, schedule="layered")):
+        assert torch.equal(u, v)
+    for name in ("flooding", "layered_rolls_wire", "layered_rolls_i8"):
         with pytest.raises(NotImplementedError):
             tdec.decode(torch.as_tensor(llr), bg, zc, schedule=name)
     with pytest.raises(ValueError):
