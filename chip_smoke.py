@@ -83,6 +83,25 @@ Phases (any failure exits non-zero):
                UE's decoder input (wire mode, BG2 Zc = 26 among them) and on
                the MIMO receiver's (f32 mode, l <= 0 rule), and f32 mode at
                BG2 Zc = 40; K1's time per launch at each shape, plain, bound.
+ 17. cell_processor — the loopback app's slot loop (loopback_app.
+               run_slot_loop, run-ahead 2) over a CellProcessor built from
+               PhyConfig(bandwidth_mhz=20, nof_ue=4, qam64, r0.5) (106 PRB,
+               nfft 1536, 4 UEs x 26 PRB): CP_SLOTS slots through in-process
+               25 dB AWGN, every TB exact, K1 launched once per UL slot, the
+               metrics hub holding every slot with positive throughput; ms per
+               slot of process_dl_slot and process_ul_slot (CUDA events), the
+               loop's wall ms per slot and x real time, the device profile of
+               a serial slot.  Then the app's default PhyConfig() (10 MHz, 2
+               UEs, 16QAM r0.5) for CP_DEFAULT_SLOTS slots, the same asserts.
+ 18. cell_harq — tests/test_cell_processor.py's HARQ scenario at 20 MHz:
+               rv 0 fails for a UE, the rv 2 retransmission on the same pid
+               decodes every TB exactly, decoded UEs' processes reset.
+ 19. cell_control — one occasion of each processor hook at 20 MHz (SSB +
+               PDCCH overlay with the PDSCH exact, MIB and DCI decoded, PRACH
+               preamble 9 alone on an unrestricted and a restricted set, PUCCH
+               F0 / F1 / F2, SRS |h|); each hook's ms per call.
+ 20. kernels on the cell processor's path — K1 against its plain version on
+               the UL slot's decoder input, its time, plain, bound.
 
 Prints the card (nvidia-smi name, power limit), a JSON line per phase (the
 last, "total", the run's seconds from the build on), the
@@ -138,6 +157,17 @@ UCI_CONFIGS = (
     dict(n_ack=2, g_ack=32, g_ack_rvd=64, n_csi1=8, g_csi1=64),
 )
 MIMO_DRAWS = 8
+# The cell processor and the app's slot loop (phases 17-19): the 20 MHz
+# 4-UE 64QAM cell through PhyConfig, and the app's default PhyConfig().
+CELL_PHY = dict(bandwidth_mhz=20, nof_ue=4, modulation="qam64", target_rate=0.5)
+CP_SLOTS = 64
+CP_DEFAULT_SLOTS = 16
+CP_PROFILE_SLOTS = 8
+# tests/test_cell_processor.py's HARQ point (3.2 dB at 10 MHz) at 20 MHz,
+# where the noise spreads over twice the bins: rv 0 at 0 dB, rv 2 at 6 dB.
+# Over 32 draws on the CPU each rv 0 failed for both UEs, each rv 2 alone
+# failed and every combination decoded.
+CELL_HARQ_SNR_DB = (0.0, 6.0)
 
 
 def check(cond, msg: str) -> None:
@@ -1194,6 +1224,256 @@ def phase_per_ue_kernel(dec, path, inputs, launches):
                         for r in rows])
 
 
+def cell_processor_loop(cuda_build, dec, dev, phy_kw, slots, tag):
+    """The loopback app's pipelined slot loop (run_slot_loop, run-ahead 2)
+    over a CellProcessor at PhyConfig(**phy_kw), an in-process AWGN radio at
+    SNR_DB and payloads from a seeded generator: every TB exact, one K1
+    launch per UL slot, the metrics hub holding every slot with positive
+    throughput.  Returns (processor, loop result, K1 launches, the radio,
+    the payload source)."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch import config, loopback_app
+    from srsran_edgeric_5g_tpu_torch.models.cell_processor import CellProcessor
+    from srsran_edgeric_5g_tpu_torch.runtime.events import RadioEventNotifier
+    cfg = config.PhyConfig(**phy_kw)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    shape = (cfg.nof_ue, cfg.cell_config().derived_tbs())
+
+    def payloads(slot):
+        return torch.randint(0, 2, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def radio(slot, td):
+        return td + awgn(td, SNR_DB, gen)
+
+    # Plans, constant tensors and the kernel's tables, on a processor of its
+    # own (the caches are per cell and device).
+    loopback_app.run_slot_loop(CellProcessor(cfg.cell_config(), pci=cfg.pci,
+                                             device=dev),
+                               radio, 3, payloads, log=lambda s: None)
+    proc = CellProcessor(cfg.cell_config(), pci=cfg.pci, device=dev)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    logged = []
+
+    def log(s):
+        print(f"{tag}: {s}", flush=True)
+        logged.append(s)
+
+    notifier = RadioEventNotifier(log=log)
+    res = loopback_app.run_slot_loop(proc, radio, slots, payloads, run_ahead=2,
+                                     notifier=notifier, log=log)
+    torch.cuda.synchronize()
+    k1 = cuda_build.LAUNCHES.get(dec.KERNEL, 0)
+    ev = notifier.events
+    check(ev.errors == 0, f"{tag}: {ev.errors} UL slots raised; the loop logged {logged}")
+    check(res.exact_count == res.ok_count == res.nof_tbs == slots * cfg.nof_ue,
+          f"{tag}: {res.exact_count} exact, {res.ok_count} CRC ok of {res.nof_tbs}")
+    check(k1 == slots, f"{tag}: {k1} K1 launches in {slots} UL slots, want one each")
+    hist = list(proc.metrics.history)
+    check(len(hist) == slots and all(
+        all(u.tb_crc_ok and u.dl_bytes > 0 for u in m.ues) for m in hist),
+        f"{tag}: metrics hub holds {len(hist)} slots, or a slot without throughput")
+    tp = proc.metrics.throughput_mbps()
+    check(len(tp) == cfg.nof_ue and all(v > 0 for v in tp.values()),
+          f"{tag}: throughput {tp}")
+    return proc, res, k1, radio, payloads, tp
+
+
+def phase_cell_processor(cuda_build, dec, dev):
+    """CellProcessor through the app's slot loop at 20 MHz 4-UE 64QAM (64
+    slots) and at the app's default PhyConfig() (16 slots): every TB exact,
+    one K1 launch per UL slot; ms per slot of each call (CUDA events), the
+    loop's wall ms per slot and x real time, the device profile of the loop
+    slot; K1's input on this path for the kernel phase."""
+    import numpy as np
+    import torch
+    from srsran_edgeric_5g_tpu_torch.models.cell_processor import CellProcessor
+    from srsran_edgeric_5g_tpu_torch.parallel import slot_pipeline as sp
+    out = {}
+    for tag, phy_kw, slots in (
+            ("cell_processor", CELL_PHY, CP_SLOTS),
+            ("cell_processor_default", {}, CP_DEFAULT_SLOTS)):
+        proc, res, k1, radio, payloads, tp = cell_processor_loop(
+            cuda_build, dec, dev, phy_kw, slots, tag)
+        cell = proc.cell
+        t = cell.timing
+        # Each call alone (CUDA events over 20 calls), on a processor of its
+        # own so the loop's metrics stay as they were.
+        tproc = CellProcessor(cell, pci=proc.pci, device=dev)
+        pay = payloads(0)
+        td = tproc.process_dl_slot(pay)
+        rx = radio(0, td)
+        dl_ms = cuda_ms(lambda: tproc.process_dl_slot(pay), 20)
+        ul_ms = cuda_ms(lambda: tproc.process_ul_slot(rx), 20)
+
+        def slot():
+            tproc.process_ul_slot(radio(0, tproc.process_dl_slot(pay)))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CP_PROFILE_SLOTS):
+            slot()
+        torch.cuda.synchronize()
+        serial_ms = (time.perf_counter() - t0) * 1e3 / CP_PROFILE_SLOTS
+        loop_ms = res.seconds * 1e3 / slots
+        seg, rm = sp._plans(cell)
+        emit(tag, cell=f"{cell.nof_prb}PRB nfft{cell.nfft} {cell.nof_ue}UEx"
+                       f"{cell.prb_per_ue}PRB {cell.modulation} r{cell.target_rate}",
+             slots=slots, snr_db=SNR_DB, tbs=proc.tbs, codeblocks=seg.c, bg=seg.bg,
+             zc=seg.zc, e=rm.e, tb_exact=res.exact_count, tbs_total=res.nof_tbs,
+             k1_launches=k1, dl_ms_per_slot=dl_ms, ul_ms_per_slot=ul_ms,
+             loop_wall_ms_per_slot=loop_ms,
+             x_real_time_loop=(1.0 / (1 << cell.mu)) / loop_ms,
+             latency_ms_p50=float(np.percentile(res.latency_ms, 50)),
+             latency_ms_p99=float(np.percentile(res.latency_ms, 99)),
+             throughput_mbps={hex(k): v for k, v in tp.items()},
+             serial_slot_wall_ms=serial_ms)
+        emit(f"{tag}_device_profile",
+             **device_profile(slot, CP_PROFILE_SLOTS, serial_ms))
+        if tag == "cell_processor":
+            # The UL slot's decoder input (its int8 HARQ carry layout), for K1
+            # against its plain version on this path.
+            llr, _, _ = sp._ul_front(rx[None], tproc.rntis, cell)
+            full = sp._decoder_input(llr.reshape(cell.nof_ue, -1), cell)
+            out = dict(launches=k1, inputs=[(tag, seg.bg, seg.zc, True,
+                                             full.contiguous())])
+    return out
+
+
+def phase_cell_harq(dev):
+    """tests/test_cell_processor.py's HARQ scenario at 20 MHz: 2 UEs x 12 PRB
+    16QAM r0.6, rv 0 and rv 2 at the two CELL_HARQ_SNR_DB points; rv 0 fails
+    for a UE, rv 2 alone fails, the rv 2 retransmission on the same pid
+    combines with the pool's buffers and decodes every TB exactly; the
+    processes are reset."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.models.cell_processor import CellProcessor
+    from srsran_edgeric_5g_tpu_torch.parallel import slot_pipeline as sp
+    cell = sp.CellConfig(nof_prb=106, nfft=1536, nof_ue=2, prb_per_ue=12,
+                         modulation="qam16", target_rate=0.6)
+    proc = CellProcessor(cell, pci=5, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    pay = torch.randint(0, 2, (2, proc.tbs), generator=gen, device=dev,
+                        dtype=torch.int8)
+    pid, rntis = 3, proc.rntis.tolist()
+
+    def tx(rv, snr_db):
+        td = proc.process_dl_slot(pay, rv=rv)
+        return td + awgn(td, snr_db, gen)
+
+    _, ok1 = proc.process_ul_slot(tx(0, CELL_HARQ_SNR_DB[0]), pid=pid, rv=0)
+    held = [proc.harq.get(r, pid).soft_buffer for r in rntis]
+    check(not bool(ok1.all()), "cell_harq: rv 0 decoded every TB")
+    check(all((b is None) == bool(o) for b, o in zip(held, ok1.tolist())),
+          "cell_harq: the pool holds a buffer exactly for the failed UEs")
+    rx2 = tx(2, CELL_HARQ_SNR_DB[1])
+    _, ok_alone = CellProcessor(cell, pci=5, device=dev).process_ul_slot(rx2, pid=pid,
+                                                                         rv=2)
+    check(not bool(ok_alone.all()), "cell_harq: rv 2 alone decoded every TB")
+    hat, ok2 = proc.process_ul_slot(rx2, pid=pid, rv=2)
+    check(bool(ok2.all()) and torch.equal(hat, pay),
+          "cell_harq: the combined rv 2 decode is not exact")
+    check(all(proc.harq.get(r, pid).soft_buffer is None
+              and proc.harq.get(r, pid).tx_count == 0 for r in rntis),
+          "cell_harq: a decoded UE's process was not reset")
+    emit("cell_harq", cell="106PRB nfft1536 2UEx12PRB qam16 r0.6",
+         snr_db=CELL_HARQ_SNR_DB, tbs=proc.tbs, rv0_ok=ok1.tolist(),
+         rv2_alone_ok=ok_alone.tolist(), combined_ok=ok2.tolist(),
+         held_buffer_shapes=[None if b is None else list(b.shape) for b in held],
+         held_buffer_dtype=str(next(b for b in held if b is not None).dtype))
+
+
+def phase_cell_control(dev):
+    """One occasion of each control hook of the CellProcessor at 20 MHz:
+    SSB (MIB) and PDCCH (DCI) overlaid on the PDSCH with the PDSCH exact,
+    and their clean grids decoded (SC polar); PRACH preamble 9 alone on an
+    unrestricted and a restricted set; PUCCH F0 m0, F1 bit, F2 bits; SRS |h|
+    at the applied gain.  Each hook's ms per call."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.models import pdcch, ssb
+    from srsran_edgeric_5g_tpu_torch.models.cell_processor import CellProcessor
+    from srsran_edgeric_5g_tpu_torch.ops import csi_rs, prach, pucch
+    from srsran_edgeric_5g_tpu_torch.parallel import slot_pipeline as sp
+    # tests/test_cell_processor.py's layout at 20 MHz: the UE span above the
+    # SSB's 20 PRB, the PDSCH from symbol 4 (PDCCH on symbol 0, SSB 0-3).
+    cell = sp.CellConfig(nof_prb=106, nfft=1536, nof_ue=4, prb_per_ue=20,
+                         modulation="qam64", target_rate=0.5, first_prb=24,
+                         first_symbol=4, nof_symbols=10, dmrs_symbols=(4, 11))
+    proc = CellProcessor(cell, pci=5, ssb_period_slots=1, device=dev)
+    t = cell.timing
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def bits(*shape):
+        return torch.randint(0, 2, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def noisy(grid, sigma=0.1):
+        return grid + torch.complex(torch.randn(grid.shape, generator=gen, device=dev),
+                                    torch.randn(grid.shape, generator=gen, device=dev)) * sigma
+
+    ms = {}
+    pay, mib, dci = bits(4, proc.tbs), bits(1, 24), bits(1, 40)
+    td = proc.process_dl_slot(pay, mib=mib, dci=dci)
+    hat, ok = proc.process_ul_slot(td + awgn(td, SNR_DB, gen))
+    check(bool(ok.all()) and torch.equal(hat, pay), "cell_control: PDSCH under SSB + PDCCH")
+    ms["dl_slot_ssb_pdcch"] = cuda_ms(lambda: proc.process_dl_slot(pay, mib=mib, dci=dci), 5)
+    scfg = ssb.SsbConfig(pci=5)
+    g_ssb = ssb.process(mib, scfg, t.nsymb, t.nof_subc)
+    mib_hat, mib_ok = ssb.decode(g_ssb, scfg)
+    check(bool(mib_ok.all()) and torch.equal(mib_hat, mib), "cell_control: MIB")
+    ms["ssb_decode"] = cuda_ms(lambda: ssb.decode(g_ssb, scfg), 3, warmup=1)
+    pcfg = pdcch.PdcchConfig(rnti=proc.rntis.tolist()[0], n_id=cell.n_id,
+                             aggregation_level=4, cce_index=0, payload_bits=40)
+    g_pdcch = pdcch.process(dci, pcfg, t.nsymb, t.nof_subc)
+    dci_hat, dci_ok = pdcch.blind_decode(g_pdcch, pcfg)
+    check(bool(dci_ok.all()) and torch.equal(dci_hat, dci), "cell_control: DCI")
+    ms["pdcch_blind_decode"] = cuda_ms(lambda: pdcch.blind_decode(g_pdcch, pcfg), 3,
+                                       warmup=1)
+
+    prach_out = {}
+    for name, pc in (("unrestricted", prach.PrachConfig(1, 13)),
+                     ("restricted_a", prach.PrachConfig(1, 15, restricted="a"))):
+        info = prach.prach_ofdm_info(t.srate, pc.l_ra)
+        occ = prach.ofdm_modulate_prach(prach.generate(pc, 9, device=dev), info)
+        det = proc.process_prach_occasion(occ, pc)
+        found = torch.nonzero(det.detected).flatten().tolist()
+        check(found == [9], f"cell_control: PRACH {name} detected {found}")
+        ms[f"prach_{name}"] = cuda_ms(lambda: proc.process_prach_occasion(occ, pc), 10)
+        prach_out[name] = dict(metric=float(det.metrics[9]), delay=int(det.delays[9]))
+
+    c0 = pucch.Pucch01Config(n_id=5, slot=0, start_symbol=12, nof_symbols=2,
+                             initial_cs=0, prb=1)
+    grid = torch.zeros((t.nsymb, t.nof_subc), dtype=torch.complex64, device=dev)
+    grid[12:14, 12:24] = pucch.format0_generate(c0, m0=6, device=dev)
+    rx0 = noisy(grid)
+    _, best = proc.process_pucch_f0(rx0, c0, (0, 3, 6, 9))
+    check(int(best) == 2, f"cell_control: F0 picked m0 index {int(best)}")
+    ms["pucch_f0"] = cuda_ms(lambda: proc.process_pucch_f0(rx0, c0, (0, 3, 6, 9)), 10)
+    c1 = pucch.Pucch01Config(n_id=5, slot=0, start_symbol=4, nof_symbols=8,
+                             initial_cs=3, prb=2)
+    rx1 = noisy(pucch.format1_process([1], c1, t.nsymb, t.nof_subc, occ_index=1,
+                                      device=dev))
+    b1, _ = proc.process_pucch_f1(rx1, c1, nof_bits=1, occ_index=1)
+    check(b1.tolist() == [1], f"cell_control: F1 bit {b1.tolist()}")
+    ms["pucch_f1"] = cuda_ms(lambda: proc.process_pucch_f1(rx1, c1, 1, 1), 10)
+    u2 = pucch.Pucch2Config(rnti=0x4601, n_id=31, n_id0=7, slot=0, start_symbol=12,
+                            nof_symbols=2, start_prb=0, nof_prb=4, uci_bits=5)
+    uci = bits(1, 5)
+    rx2 = noisy(pucch.format2_process(uci, u2, t.nsymb, t.nof_subc), 0.05)
+    uci_hat, uci_ok = proc.process_pucch(rx2, u2)
+    check(bool(uci_ok.all()) and torch.equal(uci_hat, uci), "cell_control: F2 bits")
+    ms["pucch_f2"] = cuda_ms(lambda: proc.process_pucch(rx2, u2), 10)
+    srs = csi_rs.SrsConfig(sequence_id=3, slot=0, symbol=13, start_prb=0,
+                           nof_prb=8, comb=2)
+    g_srs = csi_rs.map_srs(torch.zeros((t.nsymb, t.nof_subc), dtype=torch.complex64,
+                                       device=dev), srs) * 0.8
+    h, _ = proc.process_srs(g_srs, srs)
+    h_err = float((h.abs() - 0.8).abs().max())
+    check(h_err < 1e-5, f"cell_control: SRS |h| off 0.8 by {h_err}")
+    ms["srs"] = cuda_ms(lambda: proc.process_srs(g_srs, srs), 10)
+    emit("cell_control", cell="106PRB nfft1536 4UEx20PRB from PRB 24 qam64 r0.5",
+         snr_db=SNR_DB, prach=prach_out, srs_abs_h_err=h_err, ms_per_call=ms)
+
+
 KERNEL_NAME = re.compile(r"(layered_kernel|int8_tiled_sweep_kernel)(?:ILi(\d)E)?")
 
 
@@ -1308,6 +1588,13 @@ def main() -> int:
         decoder_cuda, "hetero_cell", hc["inputs"], hc["launches"])
     per_path["mimo_ue"] = phase_per_ue_kernel(
         decoder_cuda, "mimo_ue", mu["inputs"], mu["launches"])
+    # The cell processor through the loopback app's slot loop: K1 in wire
+    # mode once per UL slot.
+    cpx = phase_cell_processor(cuda_build, decoder_cuda, dev)
+    phase_cell_harq(dev)
+    phase_cell_control(dev)
+    per_path["cell_processor"] = phase_per_ue_kernel(
+        decoder_cuda, "cell_processor", cpx["inputs"], cpx["launches"])
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     zc40_f32, _ = synthetic_wire(encoder, dev, 2, 40, 64, 1.5, gen)
     zc40 = phase_per_ue_kernel(decoder_cuda, "synthetic",

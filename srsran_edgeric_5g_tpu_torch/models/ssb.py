@@ -1,11 +1,13 @@
 """SS/PBCH block tables (TS 38.211 §7.4.3, TS 38.212 §7.1).
 
-Port of the host-side parts of ``srsran_edgeric_5g_tpu/models/ssb.py`` that
-the full cell's batched SSB uses (``parallel.full_cell.ssb_blocks``): the
-PBCH constants and polar code, the PBCH data / DM-RS positions, the DM-RS
-sequence, the payload interleaving with its timing bits and first
-scrambling, and the second (modulator) scrambling.  The receive side is not
-ported yet.
+Port of ``srsran_edgeric_5g_tpu/models/ssb.py``: the PBCH constants and
+polar code, the PBCH data / DM-RS positions, the DM-RS sequence, the payload
+interleaving with its timing bits and first scrambling, the second
+(modulator) scrambling, and the single-block chain: ``pbch_encode`` (TS
+38.212 §7.1.1-§7.1.5), ``process`` (MIB -> grid with PSS, SSS, PBCH and its
+DM-RS) and the clean-channel receive ``decode`` (SC polar decode).  The full
+cell batches the same tables over occasions
+(``parallel.full_cell.ssb_blocks``).
 """
 
 from __future__ import annotations
@@ -13,9 +15,12 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-from ..ops import sequences
-from ..ops.polar import code as pcode
+from ..ops import modulation, sequences, sync_signals
+from ..ops.crc import crc_attach, crc_check
+from ..ops.polar import code as pcode, decoder as pdec, encoder as penc
+from ..ops.polar import rate_match as prm
 
 PBCH_PAYLOAD = 24  # higher-layer payload bits (A_hat)
 PBCH_A = 32        # after timing-bit insertion
@@ -126,3 +131,60 @@ def _seq2(cfg: SsbConfig) -> np.ndarray:
     (ssb_idx & 7) * E."""
     adv = (cfg.ssb_index & 0x7) * PBCH_E
     return sequences.np_gold_sequence(cfg.pci, adv + PBCH_E)[adv:].astype(np.int8)
+
+
+def pbch_encode(payload: torch.Tensor, cfg: SsbConfig) -> torch.Tensor:
+    """(1, 24) higher-layer payload -> (1, E=864) encoder-stage bits (TS
+    38.212 §7.1.1-§7.1.5; the modulator's 2nd scrambling is applied by
+    ``process``, as the reference splits pbch_encoder / pbch_modulator)."""
+    pos, epos, eval_, seq1 = _payload_maps(cfg)
+    dev = payload.device
+    a = torch.zeros((payload.shape[0], PBCH_A), dtype=torch.int8, device=dev)
+    a[:, torch.as_tensor(pos, device=dev)] = payload.to(torch.int8)
+    a[:, torch.as_tensor(epos, device=dev)] = torch.as_tensor(eval_, device=dev)
+    a = a ^ torch.as_tensor(seq1, device=dev)
+    cw = penc.encode(crc_attach(a, "crc24c"), _polar())
+    return prm.rate_match(cw, _polar())
+
+
+def _positions_on(pos: np.ndarray, cfg: SsbConfig, device: torch.device):
+    return (torch.as_tensor(pos[:, 0] + cfg.first_symbol, device=device),
+            torch.as_tensor(pos[:, 1] + cfg.first_subcarrier, device=device))
+
+
+def process(payload: torch.Tensor, cfg: SsbConfig, nsymb: int, nsubc: int,
+            amplitude: float = 1.0) -> torch.Tensor:
+    """(1, 24) MIB payload -> (nsymb, nsubc) grid with the full SSB."""
+    dev = payload.device
+    amp = float(np.float32(amplitude))
+    grid = torch.zeros((nsymb, nsubc), dtype=torch.complex64, device=dev)
+    grid = sync_signals.map_ssb_sync(grid, cfg.pci, cfg.first_symbol,
+                                     cfg.first_subcarrier, amplitude)
+    bits = pbch_encode(payload, cfg) ^ torch.as_tensor(_seq2(cfg), device=dev)
+    syms = modulation.modulate(bits, "qpsk")[0] * amp
+    _, data_pos, dmrs_pos = _pbch_positions(cfg)
+    grid[_positions_on(data_pos, cfg, dev)] = syms.to(torch.complex64)
+    pil = torch.as_tensor(_dmrs_sequence(cfg, len(dmrs_pos)), device=dev)
+    grid[_positions_on(dmrs_pos, cfg, dev)] = pil * amp
+    return grid
+
+
+def decode(rx_grid: torch.Tensor, cfg: SsbConfig
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Clean-channel PBCH receive: ((1, 24) payload, (1,) CRC ok).
+
+    The timing hypothesis (SSB index LSBs for the 2nd descrambling, SFN
+    parity for the 1st) comes from ``cfg``; the UE-side blind search over
+    hypotheses is out of scope, as in the reference."""
+    dev = rx_grid.device
+    _, data_pos, _ = _pbch_positions(cfg)
+    syms = rx_grid[_positions_on(data_pos, cfg, dev)]
+    llr = modulation.demodulate_soft(syms[None], torch.tensor(0.1, device=dev),
+                                     "qpsk", quantize=False)
+    llr = llr * torch.as_tensor(1.0 - 2.0 * _seq2(cfg), dtype=torch.float32,
+                                device=dev)[None]
+    decoded = pdec.decode(prm.rate_dematch(llr, _polar()), _polar())
+    ok = crc_check(decoded, "crc24c")
+    pos, _, _, seq1 = _payload_maps(cfg)
+    a = decoded[:, :PBCH_A].to(torch.int8) ^ torch.as_tensor(seq1, device=dev)
+    return a[:, torch.as_tensor(pos, device=dev)], ok

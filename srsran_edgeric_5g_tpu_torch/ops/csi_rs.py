@@ -1,8 +1,10 @@
-"""NZP-CSI-RS and SRS sequences and subcarriers (host constants).
+"""NZP-CSI-RS and SRS sequence generation, mapping and LS snapshots.
 
-Port of the transmit-side tables of ``srsran_edgeric_5g_tpu/ops/csi_rs.py``:
-CSI-RS Gold QPSK pilots (TS 38.211 §7.4.1.5) and the SRS low-PAPR sequence
-on its comb (§6.4.1.4).  The full cell builds its slot rows from them once.
+Port of ``srsran_edgeric_5g_tpu/ops/csi_rs.py``: CSI-RS Gold QPSK pilots
+(TS 38.211 §7.4.1.5) and the SRS low-PAPR sequence on its comb (§6.4.1.4)
+as host constants, their mapping into a grid, and the receive-side LS
+channel snapshots (with the SRS wideband SNR).  The full cell builds its
+batched slot rows from the same constants.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .low_papr import base_sequence
 from .sequences import np_gold_sequence
@@ -55,6 +58,26 @@ def csi_rs_subcarriers(cfg: CsiRsConfig) -> np.ndarray:
     return k.astype(np.int32)
 
 
+def _on(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(a, device=device)
+
+
+def map_csi_rs(grid: torch.Tensor, cfg: CsiRsConfig,
+               amplitude: float = 1.0) -> torch.Tensor:
+    """Write the CSI-RS pilots into a (..., nsymb, nsubc) grid (a new one)."""
+    out = grid.clone()
+    out[..., cfg.symbol, _on(csi_rs_subcarriers(cfg).astype(np.int64), grid.device)] = \
+        _on(csi_rs_pilots(cfg), grid.device) * float(np.float32(amplitude))
+    return out
+
+
+def csi_rs_estimate(rx_grid: torch.Tensor, cfg: CsiRsConfig) -> torch.Tensor:
+    """LS channel snapshot at the CSI-RS REs: (..., npilots)."""
+    dev = rx_grid.device
+    rx = rx_grid[..., cfg.symbol, _on(csi_rs_subcarriers(cfg).astype(np.int64), dev)]
+    return rx * _on(csi_rs_pilots(cfg), dev).conj()
+
+
 @dataclasses.dataclass(frozen=True)
 class SrsConfig:
     sequence_id: int
@@ -83,3 +106,28 @@ def srs_sequence(cfg: SrsConfig) -> np.ndarray:
 def srs_subcarriers(cfg: SrsConfig) -> np.ndarray:
     k0 = 12 * cfg.start_prb + cfg.comb_offset
     return (k0 + cfg.comb * np.arange(cfg.m_sc)).astype(np.int32)
+
+
+def map_srs(grid: torch.Tensor, cfg: SrsConfig,
+            amplitude: float = 1.0) -> torch.Tensor:
+    """Write the SRS sequence onto its comb of a (..., nsymb, nsubc) grid (a
+    new one)."""
+    out = grid.clone()
+    out[..., cfg.symbol, _on(srs_subcarriers(cfg).astype(np.int64), grid.device)] = \
+        _on(srs_sequence(cfg), grid.device) * float(np.float32(amplitude))
+    return out
+
+
+def srs_estimate(rx_grid: torch.Tensor, cfg: SrsConfig
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """LS estimate at the sounded comb and the wideband SNR in dB, the noise
+    from half the difference of adjacent comb estimates."""
+    dev = rx_grid.device
+    rx = rx_grid[..., cfg.symbol, _on(srs_subcarriers(cfg).astype(np.int64), dev)]
+    h = rx * _on(srs_sequence(cfg), dev).conj()
+    d = h[..., 1::2] - h[..., 0::2]
+    noise = torch.mean(d.abs() ** 2, dim=-1) / 2.0
+    sig = torch.mean(h.abs() ** 2, dim=-1)
+    snr_db = 10.0 * torch.log10(torch.clamp(sig, min=1e-30)
+                                / torch.clamp(noise, min=1e-30))
+    return h, snr_db

@@ -1,8 +1,9 @@
 """DM-RS generation for PDSCH/PUSCH (TS 38.211 §6.4.1.1 / §7.4.1.1).
 
 Port of ``srsran_edgeric_5g_tpu/ops/dmrs.py``: Gold-sequence QPSK pilots
-with configuration-type-1/2 subcarrier mapping, batched over c_init rows.
-Single-symbol DM-RS without time OCC, ports 0-3 with frequency OCC.
+with configuration-type-1/2 subcarrier mapping, batched over c_init rows,
+and their mapping into (and extraction from) a resource grid.  Single-symbol
+DM-RS without time OCC, ports 0-3 with frequency OCC.
 """
 
 from __future__ import annotations
@@ -73,3 +74,22 @@ def dmrs_sequence(c_init: torch.Tensor, npilots: int,
     re = (1.0 - 2.0 * c[..., 0::2]) * SQRT1_2
     im = (1.0 - 2.0 * c[..., 1::2]) * SQRT1_2
     return torch.complex(re, im)
+
+
+def map_dmrs(grid: torch.Tensor, pilots: torch.Tensor, pattern: DmrsPattern,
+             symbol: int, amplitude: float = 1.0) -> torch.Tensor:
+    """Write pilots into a (..., nsymb, nsubc) grid at the DM-RS symbol; the
+    grid is not modified, a new one is returned."""
+    wf = torch.as_tensor(pattern.wf, device=grid.device)
+    vals = pilots * wf * float(np.float32(amplitude))
+    out = grid.clone()
+    out[..., symbol, torch.as_tensor(pattern.subcarriers, device=grid.device)] = \
+        vals.to(grid.dtype)
+    return out
+
+
+def extract_dmrs(grid: torch.Tensor, pattern: DmrsPattern,
+                 symbol: int) -> torch.Tensor:
+    """Read pilot REs from a (..., nsymb, nsubc) grid -> (..., npilots)."""
+    return grid[..., symbol,
+                torch.as_tensor(pattern.subcarriers, device=grid.device)]

@@ -98,7 +98,7 @@ def _plan_tensors(bg: int, zc: int, device: torch.device) -> _PlanTensors:
 def decode(llrs: torch.Tensor, bg: int, zc: int,
            num_iters: int = DEFAULT_ITERS,
            scaling: float = DEFAULT_SCALING,
-           schedule: str = "layered",
+           schedule: str = "auto",
            early_stop: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode (B, cols*Zc) LLRs -> (hard message bits (B, kb*Zc) int8,
     parity_ok (B,) bool).
@@ -121,8 +121,9 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
       * 'pallas': the kernel's f32 mode (``decode_pallas`` semantics: fixed
         sweeps, hard bits ``post < 0``, Zc >= 64 on the card); its plain
         version on a CPU tensor.
-      * 'auto': the reference resolves it to 'layered' on every backend but
-        the TPU.  On a CPU tensor it is 'layered'; on a CUDA tensor the
+      * 'auto' (the default, as the reference's): the reference resolves
+        it to 'layered' on every backend but the TPU.  On a CPU tensor it
+        is 'layered'; on a CUDA tensor the
         kernel's f32 mode with 'layered''s hard rule ``l <= 0`` at every
         lifting size, exiting per codeblock (the batch exit of 'layered'
         gives the same bits on every input measured: ROADMAP.md Queue C).

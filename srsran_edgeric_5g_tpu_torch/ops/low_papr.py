@@ -1,7 +1,8 @@
 """Low-PAPR (Zadoff-Chu) base sequences, TS 38.211 §5.2.2.
 
-Port of ``base_sequence`` in ``srsran_edgeric_5g_tpu/ops/low_papr.py``: the
-sequences r_{u,v}(n) of PUCCH formats 0/1 and SRS, built on the host.  For
+Port of ``srsran_edgeric_5g_tpu/ops/low_papr.py``: the sequences
+r_{u,v}(n) of PUCCH formats 0/1 and SRS, built on the host, and their
+cyclically shifted form r^(alpha)_{u,v}(n) as a tensor.  For
 M_zc >= 36, r_{u,v}(n) = x_q(n mod N_zc) with x_q(m) = exp(-j pi q m (m+1) /
 N_zc) and N_zc the largest prime below M_zc; for 1-4 PRB the spec's phi
 tables apply (this package's ``data/ldpc_graphs.npz``).
@@ -13,6 +14,9 @@ import functools
 import pathlib
 
 import numpy as np
+import torch
+
+from ..device import resolve_device
 
 _DATA = pathlib.Path(__file__).resolve().parents[1] / "data" / "ldpc_graphs.npz"
 
@@ -45,3 +49,11 @@ def base_sequence(u: int, v: int, m_zc: int) -> np.ndarray:
     m = np.arange(n_zc, dtype=np.float64)
     x_q = np.exp(-1j * np.pi * q * m * (m + 1) / n_zc)
     return x_q[np.arange(m_zc) % n_zc].astype(np.complex64)
+
+
+def low_papr_sequence(u: int, v: int, alpha: float, m_zc: int,
+                      device: str | torch.device = "cuda") -> torch.Tensor:
+    """r^(alpha)_{u,v}(n) = e^{j alpha n} r_{u,v}(n), complex64 on ``device``."""
+    n = np.arange(m_zc)
+    seq = (np.exp(1j * alpha * n) * base_sequence(u, v, m_zc)).astype(np.complex64)
+    return torch.as_tensor(seq, device=resolve_device(device))

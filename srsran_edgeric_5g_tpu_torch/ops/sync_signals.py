@@ -1,8 +1,8 @@
 """PSS / SSS sequences (TS 38.211 §7.4.2).
 
-Port of ``pss_sequence``, ``sss_sequence`` and ``pci_to_nid`` in
-``srsran_edgeric_5g_tpu/ops/sync_signals.py``: tiny static m-sequences,
-built on the host.
+Port of ``srsran_edgeric_5g_tpu/ops/sync_signals.py``: tiny static
+m-sequences built on the host, their placement in an SSB grid, and the
+cell-search PSS correlation.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 SSB_NSYMB = 4
 SSB_NSUBC = 240
@@ -57,3 +58,27 @@ def sss_sequence(n_id1: int, n_id2: int) -> np.ndarray:
 def pci_to_nid(pci: int) -> tuple[int, int]:
     """Physical cell id N_ID^cell = 3 N_ID1 + N_ID2."""
     return pci // 3, pci % 3
+
+
+def map_ssb_sync(grid: torch.Tensor, pci: int, first_symbol: int = 0,
+                 first_subcarrier: int = 0, amplitude: float = 1.0) -> torch.Tensor:
+    """Place PSS (symbol 0) and SSS (symbol 2) into a (..., nsymb, nsubc)
+    grid, returning a new grid.  PSS/SSS sit on subcarriers 56..182 of the
+    240-subcarrier block (TS 38.211 Table 7.4.3.1-1)."""
+    n_id1, n_id2 = pci_to_nid(pci)
+    sl = torch.arange(PSS_LEN, device=grid.device) + first_subcarrier + 56
+    out = grid.clone()
+    out[..., first_symbol, sl] = torch.as_tensor(
+        pss_sequence(n_id2) * np.float32(amplitude), device=grid.device).to(grid.dtype)
+    out[..., first_symbol + 2, sl] = torch.as_tensor(
+        sss_sequence(n_id1, n_id2) * np.float32(amplitude),
+        device=grid.device).to(grid.dtype)
+    return out
+
+
+def pss_correlate(rx_symbols: torch.Tensor) -> torch.Tensor:
+    """Correlate (..., 127) frequency-domain REs against the 3 PSS sequences
+    -> (..., 3) correlation magnitudes (the cell-search N_ID2 metric)."""
+    seqs = torch.as_tensor(np.stack([pss_sequence(i) for i in range(3)]),
+                           device=rx_symbols.device).to(torch.complex64)
+    return torch.einsum("...n,kn->...k", rx_symbols.to(torch.complex64), seqs).abs()

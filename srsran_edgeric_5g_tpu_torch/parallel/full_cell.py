@@ -608,45 +608,10 @@ def _srs_estimate(rx_grid_srs: torch.Tensor, fc: FullCellConfig):
 
 # ================================================================ PRACH
 
-@functools.lru_cache(maxsize=None)
-def _prach_static(fc: FullCellConfig):
-    """Root-sequence DFTs of the cell's roots and each preamble's (root row,
-    N_cs zone start); the zone width."""
-    cfg = fc.prach_cfg()
-    l_ra = cfg.l_ra
-    table = cfg.preamble_table
-    offsets = sorted({off for off, _, _ in table})
-    row_of = {off: i for i, off in enumerate(offsets)}
-    roots = np.stack([prach_mod.root_sequence(
-        prach_mod.sequence_number(cfg.root_sequence_index + off, l_ra), l_ra)
-        for off in offsets])
-    root_f = np.fft.fft(roots, axis=-1).astype(np.complex64)
-    win = min(cfg.n_cs if cfg.n_cs else l_ra, l_ra)
-    rows = np.asarray([row_of[off] for off, _, _ in table])
-    starts = np.asarray([(l_ra - cv) % l_ra for _, _, cv in table])
-    return root_f, rows, starts, win
-
-
-@functools.lru_cache(maxsize=None)
-def _prach_tensors(fc: FullCellConfig, device: torch.device):
-    root_f, rows, starts, win = _prach_static(fc)
-    zone = starts[:, None] + np.arange(win)[None, :]        # (64, win)
-    return _dev(root_f.conj(), rows[:, None], zone, device=device)
-
-
 def _prach_detect_batch(rx_freq: torch.Tensor, fc: FullCellConfig):
     """(B, L_RA) frequency-domain occasions -> ((B, 64) metric, delay,
-    detected): per-root correlation by IDFT, each preamble's max over its own
-    N_cs zone against the occasion's mean power."""
-    root_conj, rows, zone = _prach_tensors(fc, rx_freq.device)
-    corr_t = torch.fft.ifft(rx_freq[:, None, :] * root_conj, dim=-1)
-    power = corr_t.abs() ** 2                               # (B, R, L)
-    floor = power.mean(dim=(1, 2), keepdim=True)[:, :, 0] + 1e-30
-    power2 = torch.cat([power, power], dim=-1)              # wrap-around
-    zones = power2[:, rows, zone]                           # (B, 64, win)
-    peak, delays = zones.max(dim=-1)
-    metrics = peak / floor
-    return metrics, delays, metrics > fc.prach_threshold
+    detected) at the cell's PRACH configuration and threshold."""
+    return prach_mod.detect_batch(rx_freq, fc.prach_cfg(), fc.prach_threshold)
 
 
 def prach_occasion_td(fc: FullCellConfig, preamble_index: int,

@@ -6,6 +6,8 @@ and GF(2) maps; the wire-domain dematch combines integers (exact in bf16 and
 float32); the decoders repeat the reference's float32 operation sequence
 ('layered') or its integer-valued wire arithmetic ('layered_wire')."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -176,9 +178,9 @@ def test_check_parity():
 
 
 def test_decode_dispatch():
-    """wire_auto on a CPU tensor is layered_wire, auto is layered; pallas is
-    the kernel's f32 plain version; unported schedules raise
-    NotImplementedError."""
+    """wire_auto on a CPU tensor is layered_wire, auto is layered and is the
+    default; pallas is the kernel's f32 plain version; unported schedules
+    raise NotImplementedError."""
     bg, zc = 2, 128
     msgs, llr, wire = _awgn_llrs(bg, zc, 4, 2.0, seed=3)
     a = tdec.decode(torch.as_tensor(wire), bg, zc, schedule="wire_auto")
@@ -190,6 +192,13 @@ def test_decode_dispatch():
     assert torch.equal(hp, hk) and torch.equal(okp, okk)
     np.testing.assert_array_equal(hp.numpy(), msgs)
     for u, v in zip(tdec.decode(torch.as_tensor(llr), bg, zc, schedule="auto"),
+                    tdec.decode(torch.as_tensor(llr), bg, zc, schedule="layered")):
+        assert torch.equal(u, v)
+    # The default schedule is the reference's: "auto" (on the CPU "layered").
+    default = inspect.signature(tdec.decode).parameters["schedule"].default
+    assert default == "auto"
+    assert default == inspect.signature(jdec.decode).parameters["schedule"].default
+    for u, v in zip(tdec.decode(torch.as_tensor(llr), bg, zc),
                     tdec.decode(torch.as_tensor(llr), bg, zc, schedule="layered")):
         assert torch.equal(u, v)
     for name in ("flooding", "layered_rolls_wire", "layered_rolls_i8"):
