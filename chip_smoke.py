@@ -102,6 +102,34 @@ Phases (any failure exits non-zero):
                F0 / F1 / F2, SRS |h|); each hook's ms per call.
  20. kernels on the cell processor's path — K1 against its plain version on
                the UL slot's decoder input, its time, plain, bound.
+ 21. sched_cell — the MAC and EdgeRIC layers through the app's scheduled
+               loop (loopback_app.run_scheduled, --sched pf) on CELL_PHY's
+               cell, SCHED_SLOTS slots at 25 dB through an in-process AWGN
+               radio, with an in-process EdgeRIC (StandInRic: the port's
+               MuAppScheduler behind EdgericAgent's interface, since the
+               card's machine has no pyzmq or protobuf): max_cqi weights,
+               then round_robin through an AlgorithmSwitch file.  Every DL TB
+               delivered, every weighted grant's PRB count what its weight
+               gives, K1 once per granted UE and slot; wall ms per slot,
+               layouts and build ms, host reads per slot; the same run
+               warm (every layout's lazy tables made), timed, and profiled
+               over SCHED_PROFILE's slots.
+ 22. sched_ul_harq — UL traffic with SR and BSR, a deep UL fade (5 dB) and a
+               DL fade (4 dB), SCHED_UL_SLOTS slots: a UL and a DL
+               retransmission recovered by soft combining, nothing dropped,
+               every SR detected, a BSR, UL bytes served.
+ 23. sched_rach_bcch — the cell starting empty: 2 UEs attach (PRACH, RAR,
+               Msg3, Msg4) while SIB1 and paging go out, SCHED_RACH_SLOTS
+               slots; both connected, SIB1 and the page received, scheduled
+               TBs after the attach.
+ 24. kernels on the scheduled paths — K1 against its plain version on
+               each scheduled phase's decoder inputs (wire mode, kept by a
+               SchedRecorder): sched_cell's last DL slot (one per UE);
+               sched_ul_harq's first faded UL retransmission (the float32
+               soft-combined buffer), first DL retransmission and a new UL
+               TB; sched_rach_bcch's first control PDSCH per RNTI (SIB1,
+               paging, RAR, Msg4), its first Msg3 and a data TB after the
+               attach; its time per launch, plain, bound.
 
 Prints the card (nvidia-smi name, power limit), a JSON line per phase (the
 last, "total", the run's seconds from the build on), the
@@ -111,6 +139,7 @@ last {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -168,6 +197,13 @@ CP_PROFILE_SLOTS = 8
 # Over 32 draws on the CPU each rv 0 failed for both UEs, each rv 2 alone
 # failed and every combination decoded.
 CELL_HARQ_SNR_DB = (0.0, 6.0)
+# The MAC and EdgeRIC layers through the app's scheduled loop (phases 21-24)
+# on CELL_PHY's cell: RNTIs 0x4601-0x4604 on 106 PRB, RBG 8.
+SCHED_SLOTS = 64
+SCHED_SWITCH_TTI = 32          # max_cqi weights before, round_robin from here
+SCHED_PROFILE = (24, 32)       # the slots profiled in a warm repeat of sched_cell
+SCHED_UL_SLOTS = 24
+SCHED_RACH_SLOTS = 40
 
 
 def check(cond, msg: str) -> None:
@@ -457,6 +493,13 @@ def device_profile(step_fn, n_prof: int, wall_ms: float) -> dict:
         for _ in range(n_prof):
             step_fn()
         torch.cuda.synchronize()
+    return profile_summary(prof, n_prof, wall_ms)
+
+
+def profile_summary(prof, n_prof: int, wall_ms: float) -> dict:
+    """``device_profile``'s figures from a finished torch.profiler run over
+    ``n_prof`` steps of ``wall_ms`` unprofiled wall time each."""
+    import torch
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us, end = 0.0, -math.inf
@@ -1474,6 +1517,397 @@ def phase_cell_control(dev):
          snr_db=SNR_DB, prach=prach_out, srs_abs_h_err=h_err, ms_per_call=ms)
 
 
+class AwgnRadio:
+    """The scheduled loop's radio on the card: complex AWGN at the SNR the
+    loop asks for, from a seeded generator; keeps the host clock at each
+    slot's first transmission and calls ``hook(slot)`` first."""
+
+    def __init__(self, gen, hook=None):
+        self.gen, self.hook, self.first_call = gen, hook, {}
+
+    def __call__(self, slot, td, snr_db):
+        self.first_call.setdefault(slot, time.perf_counter())
+        if self.hook is not None:
+            self.hook(slot)
+        return td + awgn(td, snr_db, self.gen)
+
+
+class StandInRic:
+    """An in-process EdgeRIC, since the card's machine has neither pyzmq nor
+    protobuf: ``runtime.edgeric.EdgericAgent``'s interface to the RAN
+    (``send_metrics``, ``get_weights``, ``get_mcs``, ``tti``,
+    ``weights_age``) and ``ric.messenger.RicMessenger``'s to the port's
+    ``MuAppScheduler`` (``get_metrics``, ``send_scheduling_weight``), so the
+    policy functions get the ``ue_data`` dict that RicMessenger.get_metrics
+    builds.  What the wire does is kept: the protobuf float fields are
+    float32, the decision echoes the ``ran_index`` it was computed from, and
+    a policy is read once (a drained, conflating SUB; fail-open after).  The
+    muApp answers each TTI's metrics before the next TTI.  Before TTI k of
+    ``plan`` the AlgorithmSwitch's key is set to plan[k]."""
+
+    def __init__(self, muapp_cls, switch, plan):
+        self.tti = 0
+        self.weights_age = None
+        self.mcs_age = None
+        self._metrics = None
+        self._weights = None
+        self.switch, self.plan = switch, plan
+        self.algorithms = []          # per TTI, the algorithm the muApp ran
+        self.muapp = muapp_cls(self, switch=switch)
+
+    # ---- the RAN side (EdgericAgent) ----
+
+    def send_metrics(self, reports) -> None:
+        import numpy as np
+
+        def f32(x):
+            return float(np.float32(x))
+        self._metrics = (self.tti, {
+            r.rnti: {"cqi": r.cqi, "snr": f32(r.snr), "tx_bytes": f32(r.tx_bytes),
+                     "rx_bytes": f32(r.rx_bytes), "dl_buffer": r.dl_buffer,
+                     "ul_buffer": r.ul_buffer, "dl_tbs": f32(r.dl_tbs)}
+            for r in reports})
+        if self.tti in self.plan:
+            self.switch.set(self.plan[self.tti])
+        check(self.muapp.step(blocking=False), f"the muApp skipped TTI {self.tti}")
+        self.algorithms.append(self.muapp.algorithm)
+        self.tti += 1
+
+    def get_weights(self, rntis):
+        msg, self._weights = self._weights, None
+        if msg is None:
+            self.weights_age = None
+            return None
+        ran_index, vals = msg
+        pairs = {int(vals[i]): float(vals[i + 1]) for i in range(0, len(vals) - 1, 2)}
+        out = {r: pairs[r] for r in rntis if r in pairs}
+        if not out:
+            self.weights_age = None
+            return None
+        total = sum(out.values())
+        if total > 0:
+            out = {r: v / total for r, v in out.items()}
+        self.weights_age = self.tti - ran_index
+        return out
+
+    def get_mcs(self, rntis):
+        self.mcs_age = None           # the muApp sends no MCS overrides
+        return None
+
+    # ---- the muApp side (RicMessenger) ----
+
+    def get_metrics(self, blocking=True, timeout_ms=1000):
+        msg, self._metrics = self._metrics, None
+        return (None, {}) if msg is None else msg
+
+    def send_scheduling_weight(self, ran_tti, weights) -> None:
+        import numpy as np
+        flat = []
+        for rnti, w in weights.items():
+            flat += [float(rnti), float(w)]
+        self._weights = (int(ran_tti or 0), np.asarray(flat, np.float32).tolist())
+
+
+class SchedRecorder:
+    """While open, what a scheduled run's layers did, without the loop
+    keeping it: each DL slot's scheduler inputs and grants and each
+    HARQ-ACK (``CellScheduler.run_slot`` / ``handle_dl_ack`` wrapped), and
+    K1's inputs by receive call (``HeteroCellProcessor._rx`` and
+    ``decoder.decode`` wrapped).  A receive call's kind is its direction
+    ("dl": UE-side PDSCH, "ul": gNB-side PUSCH) and whether it combines
+    (HARQ: "retx" when a UE sends rv != 0, else "new"; "single": a control
+    PDSCH or Msg3, with its RNTI); the first and the last call of each kind
+    are kept, each as (redundancy versions or None, [(llrs, bg, zc) per
+    UE])."""
+
+    def __init__(self):
+        self.slots, self.acks = [], []
+        self.first, self.last = {}, {}
+
+    def __enter__(self):
+        from srsran_edgeric_5g_tpu_torch.mac import scheduler as mac
+        from srsran_edgeric_5g_tpu_torch.models import hetero_cell, pdsch
+        from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder
+        cls, hc = mac.CellScheduler, hetero_cell.HeteroCellProcessor
+        run_slot, handle_dl_ack, rx, decode = (cls.run_slot, cls.handle_dl_ack, hc._rx,
+                                               decoder.decode)
+        calls = []
+
+        def rec_run_slot(sched, *a, **k):
+            buffers = {r: u.dl_buffer for r, u in sched.ues.items()}
+            grants = run_slot(sched, *a, **k)
+            self.slots.append(dict(weights=k.get("weights"), dl_buffers=buffers,
+                                   grants=grants))
+            return grants
+
+        def rec_ack(sched, rnti, pid, ack):
+            self.acks.append((rnti, pid, bool(ack)))
+            return handle_dl_ack(sched, rnti, pid, ack)
+
+        def rec_rx(proc, rx_samples, fn, soft_buffers=None, rvs=None):
+            calls.append([])
+            try:
+                out = rx(proc, rx_samples, fn, soft_buffers, rvs)
+            finally:
+                inputs = calls.pop()
+            kind = ("dl" if fn is pdsch.receive else "ul",
+                    ("single", proc.ue_cfgs[0].rnti) if rvs is None
+                    else "retx" if any(rvs) else "new")
+            check(len(inputs) == len(proc.ue_cfgs), f"{kind}: {len(inputs)} decodes "
+                                                    f"for {len(proc.ue_cfgs)} UEs")
+            self.first.setdefault(kind, (rvs, inputs))
+            self.last[kind] = (rvs, inputs)
+            return out
+
+        def rec_decode(llrs, bg, zc, *a, **k):
+            if calls:
+                calls[-1].append((llrs, bg, zc))
+            return decode(llrs, bg, zc, *a, **k)
+
+        self._restore = lambda: (setattr(cls, "run_slot", run_slot),
+                                 setattr(cls, "handle_dl_ack", handle_dl_ack),
+                                 setattr(hc, "_rx", rx), setattr(decoder, "decode", decode))
+        cls.run_slot, cls.handle_dl_ack, hc._rx, decoder.decode = (
+            rec_run_slot, rec_ack, rec_rx, rec_decode)
+        return self
+
+    def __exit__(self, *exc):
+        self._restore()
+
+    def grants(self):
+        return [[dataclasses.asdict(g) for g in s["grants"]] for s in self.slots]
+
+
+def k1_inputs(name, call, ues=None):
+    """K1's inputs of one kept receive call, as phase_per_ue_kernel takes
+    them: the wire decode's int8 after its ±64 load clamp; ``ues``: which
+    UEs (default all; "retx": those that sent rv != 0)."""
+    import torch
+    rvs, inputs = call
+    if ues == "retx":
+        ues = [u for u, rv in enumerate(rvs) if rv]
+    return [(f"{name} UE {u}" + (f" rv{rvs[u]}" if rvs else ""), bg, zc, True,
+             torch.clamp(x, -64, 64).to(torch.int8).contiguous())
+            for u, (x, bg, zc) in enumerate(inputs) if ues is None or u in ues]
+
+
+def run_sched(cuda_build, dec, dev, tag, slots, argv=(), seed=0, agent=None,
+              hook=None):
+    """The app's scheduled loop (``loopback_app.run_scheduled``, ``--sched
+    pf`` and ``argv``) for ``slots`` slots on CELL_PHY's cell, through an
+    AwgnRadio on the card and traffic from ``default_rng(seed)``, under a
+    SchedRecorder; K1's launches are counted from 0 around it.  No radio
+    event may occur.  Returns (result, K1 launches, radio, recorder)."""
+    import numpy as np
+    import torch
+    from srsran_edgeric_5g_tpu_torch import config, loopback_app
+    from srsran_edgeric_5g_tpu_torch.runtime.events import RadioEventNotifier
+    cfg = config.PhyConfig(**CELL_PHY)
+    args = loopback_app._parser().parse_args(
+        ["--sched", "pf", "--slots", str(slots), *argv])
+    radio = AwgnRadio(torch.Generator(device=dev).manual_seed(SEED + 20 + seed), hook)
+
+    def log(s):
+        print(f"{tag}: {s}", flush=True)
+
+    notifier = RadioEventNotifier(log=log)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    with SchedRecorder() as rec:
+        res = loopback_app.run_scheduled(args, cfg, cfg.cell_config(), radio, agent,
+                                         notifier, np.random.default_rng(seed),
+                                         device=dev, log=log)
+        torch.cuda.synchronize()
+    k1 = cuda_build.LAUNCHES.get(dec.KERNEL, 0)
+    check(notifier.events.total() == 0, f"{tag}: radio events {notifier.events.as_dict()}")
+    return res, k1, radio, rec
+
+
+def weighted_prbs(mac, tbs, nof_prb, g, w, buf):
+    """A new-tx grant's PRB count under EdgeRIC weight ``w`` at DL buffer
+    ``buf`` (scheduler.py:486-499): min(int(w * BWP), the buffer's PRB
+    need), at least 1, within what is left, snapped up to the RBG grid."""
+    remaining = nof_prb - g.start_prb
+    need = mac.prbs_for_bytes(buf, tbs.mcs_config(g.mcs), 12, 24, remaining)
+    n = min(max(min(int(w * nof_prb), need), 1), remaining)
+    rbg = mac.rbg_size_for_bwp(nof_prb)
+    return min(-(-n // rbg) * rbg, remaining)
+
+
+def phase_sched_cell(cuda_build, dec, dev):
+    """The scheduled cell with the EdgeRIC stand-in: SCHED_SLOTS slots of
+    --sched pf on CELL_PHY's cell, max_cqi weights, then round_robin from
+    TTI SCHED_SWITCH_TTI through an AlgorithmSwitch file.  Every DL TB
+    delivered, each weighted grant's PRB count what its weight gives, one K1
+    launch per granted UE and slot.  Wall ms per slot, layouts and their
+    build ms, host reads per slot, K1's launches; then the same run warm
+    (the same grants), timed, and once more profiled over SCHED_PROFILE's
+    slots.  Returns K1's launches and the last DL slot's K1 inputs."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from srsran_edgeric_5g_tpu_torch.mac import scheduler as mac
+    from srsran_edgeric_5g_tpu_torch.ops import crc
+    from srsran_edgeric_5g_tpu_torch.ran import tbs
+    from srsran_edgeric_5g_tpu_torch.ric import AlgorithmSwitch, MuAppScheduler
+    nof_prb = 106
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def stand_in():
+            switch = AlgorithmSwitch(os.path.join(tmp, "scheduling_algorithm"))
+            switch.set("max_cqi")
+            return StandInRic(MuAppScheduler, switch,
+                              {SCHED_SWITCH_TTI: "round_robin"})
+
+        ric = stand_in()
+        crc_misses = crc.remainder_table.cache_info().misses
+        res, k1, radio, rec = run_sched(cuda_build, dec, dev, "sched_cell", SCHED_SLOTS,
+                                        agent=ric)
+        crc_misses = crc.remainder_table.cache_info().misses - crc_misses
+        # Twice more, with every layout's lazily built tables (plans,
+        # decoder tables per lifting size) made by the first run: unprofiled
+        # (what a slot costs after its layout's first use), then profiled
+        # over SCHED_PROFILE's slots.
+        res_w, _, radio_w, rec_w = run_sched(cuda_build, dec, dev, "sched_cell_warm",
+                                             SCHED_SLOTS, agent=stand_in())
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+        def window(slot):
+            if slot in SCHED_PROFILE:
+                torch.cuda.synchronize()
+                (prof.start if slot == SCHED_PROFILE[0] else prof.stop)()
+
+        run_sched(cuda_build, dec, dev, "sched_cell_profiled", SCHED_SLOTS,
+                  agent=stand_in(), hook=window)
+
+    check(res.code == 0 and res.dl_dropped == 0 and res.dl_in_flight == 0,
+          f"sched_cell: {res.ok_count}/{res.tb_count} TBs, {res.dl_dropped} dropped, "
+          f"{res.dl_in_flight} in flight")
+    grants = sum(len(r["grants"]) for r in rec.slots)
+    check(len(rec.slots) == SCHED_SLOTS and len(rec.acks) == grants == res.tb_count,
+          f"sched_cell: {len(rec.slots)} slots scheduled, {grants} grants, "
+          f"{len(rec.acks)} ACKs, {res.tb_count} TBs received")
+    check(k1 == grants, f"sched_cell: {k1} K1 launches for {grants} granted UE slots")
+    # The weights: slot s applies the muApp's decision on TTI s - 1.
+    per_algo, checked = {}, 0
+    for slot, r in enumerate(rec.slots):
+        if r["weights"] is None:
+            continue
+        algo = ric.algorithms[slot - 1]
+        per_algo[algo] = per_algo.get(algo, 0) + 1
+        for g in r["grants"]:
+            if g.is_retx:
+                continue
+            want = weighted_prbs(mac, tbs, nof_prb, g, r["weights"][g.rnti],
+                                 r["dl_buffers"][g.rnti])
+            check(g.nof_prb == want, f"sched_cell slot {slot}: {g.rnti:#x} got "
+                                     f"{g.nof_prb} PRB, its weight gives {want}")
+            checked += 1
+    check(set(per_algo) == {"max_cqi", "round_robin"} and checked > 0,
+          f"sched_cell: weighted slots per algorithm {per_algo}")
+    check(ric.weights_age == 1, f"sched_cell: weights age {ric.weights_age}")
+
+    def slot_walls(radio):
+        t = [radio.first_call[s] for s in range(SCHED_SLOTS)]
+        return t, [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+    _, slot_ms = slot_walls(radio)
+    t_warm, slot_ms_w = slot_walls(radio_w)
+    # A new message length needs a new CRC remainder table, built on the
+    # host bit by bit: the TB CRC tables of the last slot's sizes, rebuilt.
+    crc_lens = sorted({g.tbs for g in rec.slots[-1]["grants"]})
+    t0 = time.perf_counter()
+    for n in crc_lens:
+        crc.remainder_table.__wrapped__("crc24a", n)
+    crc_ms = (time.perf_counter() - t0) * 1e3 / len(crc_lens)
+    wall_ms = res.seconds * 1e3 / SCHED_SLOTS
+    p0, p1 = SCHED_PROFILE
+    window_ms = (t_warm[p1] - t_warm[p0]) * 1e3 / (p1 - p0)
+    emit("sched_cell", cell="106PRB nfft1536 4UE qam64-table PF + EdgeRIC weights",
+         slots=SCHED_SLOTS, snr_db=SNR_DB, tbs=res.tb_count, tb_ok=res.ok_count,
+         grants=grants, k1_launches=k1, weighted_slots=per_algo, prbs_checked=checked,
+         weights_age=ric.weights_age, bytes_served={hex(k): v for k, v in
+                                                    res.bytes_served.items()},
+         wall_ms_per_slot=wall_ms, x_real_time=1.0 / wall_ms,
+         slot_wall_ms_first_8=slot_ms[:8],
+         slot_wall_ms_after_8_mean=float(np.mean(slot_ms[8:])),
+         layouts=res.layouts, build_ms_mean=float(np.mean(res.build_ms)),
+         build_ms_total=float(np.sum(res.build_ms)),
+         build_share_of_wall=float(np.sum(res.build_ms)) / (res.seconds * 1e3),
+         host_syncs=res.host_syncs, host_syncs_per_slot=res.host_syncs / SCHED_SLOTS,
+         crc_tables_built=crc_misses, crc_table_lengths=crc_lens,
+         crc_table_host_ms_per_build=crc_ms)
+    check(rec_w.grants() == rec.grants(), "sched_cell: the warm run's grants differ")
+    emit("sched_cell_device_profile", slots=[p0, p1],
+         warm_wall_ms_per_slot=res_w.seconds * 1e3 / SCHED_SLOTS,
+         warm_slot_wall_ms_first_8=slot_ms_w[:8],
+         warm_slot_wall_ms_after_8_mean=float(np.mean(slot_ms_w[8:])),
+         warm_build_ms_total=float(np.sum(res_w.build_ms)),
+         **profile_summary(prof, p1 - p0, window_ms))
+    return dict(launches=k1, inputs=k1_inputs("sched_cell last DL slot",
+                                              rec.last[("dl", "new")]))
+
+
+def phase_sched_ul_harq(cuda_build, dec, dev):
+    """The scheduled loop's HARQ and UL legs on CELL_PHY's cell: UL traffic
+    (SR, BSR, PUSCH) with a deep UL fade and a deep DL fade, SCHED_UL_SLOTS
+    slots; the reference app's criteria: a UL and a DL retransmission
+    recovered by soft combining, nothing dropped, every SR detected, a BSR,
+    UL bytes served."""
+    res, k1, _, rec = run_sched(cuda_build, dec, dev, "sched_ul_harq", SCHED_UL_SLOTS,
+                           ("--ul-traffic", "400", "--ul-fade", "4", "--ul-fade-snr", "5",
+                            "--dl-fade", "3", "--dl-fade-snr", "4"), seed=1)
+    check(res.code == 0 and res.ul_retx_ok >= 1 and res.dl_retx_ok >= 1
+          and res.ul_dropped == res.dl_dropped == 0 and res.sr_detected == res.sr_sent
+          and res.bsr_rx >= 1 and sum(res.ul_served.values()) > 0,
+          f"sched_ul_harq: {vars(res)}")
+    check(k1 == res.tb_count + res.ul_tb, f"sched_ul_harq: {k1} K1 launches for "
+                                          f"{res.tb_count} DL and {res.ul_tb} UL TBs")
+    emit("sched_ul_harq", slots=SCHED_UL_SLOTS, dl_tbs=res.tb_count, dl_ok=res.ok_count,
+         dl_retx=res.dl_retx, dl_retx_ok=res.dl_retx_ok, ul_tbs=res.ul_tb,
+         ul_ok=res.ul_ok, ul_retx=res.ul_retx, ul_retx_ok=res.ul_retx_ok,
+         sr_sent=res.sr_sent, sr_detected=res.sr_detected, bsrs=res.bsr_rx,
+         ul_bytes_served={hex(k): v for k, v in res.ul_served.items()},
+         k1_launches=k1, layouts=res.layouts, host_syncs=res.host_syncs,
+         wall_ms_per_slot=res.seconds * 1e3 / SCHED_UL_SLOTS)
+    # K1's inputs: the first faded UL retransmission (gNB side, the float32
+    # soft-combined buffer) and DL retransmission (UE side), and a new UL TB.
+    inputs = (k1_inputs("sched_ul_harq UL retx", rec.first[("ul", "retx")], "retx")
+              + k1_inputs("sched_ul_harq DL retx", rec.first[("dl", "retx")], "retx")
+              + k1_inputs("sched_ul_harq UL new", rec.first[("ul", "new")], [0]))
+    return dict(launches=k1, inputs=inputs)
+
+
+def phase_sched_rach_bcch(cuda_build, dec, dev):
+    """The cell starting empty: two UEs attach through PRACH, RAR, Msg3 and
+    Msg4 while SIB1 and paging go out, SCHED_RACH_SLOTS slots; both UEs
+    connected, SIB1 received every 20 slots, every paged id received,
+    scheduled TBs after the attach."""
+    res, k1, _, rec = run_sched(cuda_build, dec, dev, "sched_rach_bcch", SCHED_RACH_SLOTS,
+                           ("--rach", "2", "--bcch"), seed=2)
+    check(res.code == 0 and len(res.attached) == 2 and res.ue_states == {"connected"}
+          and res.sib1_rx >= 1 + (SCHED_RACH_SLOTS - 1) // 20
+          and res.paging_rx == len(res.paged_ids) > 0 and res.tb_count > 0,
+          f"sched_rach_bcch: {vars(res)}")
+    emit("sched_rach_bcch", slots=SCHED_RACH_SLOTS, attached=[hex(r) for r in res.attached],
+         ue_states=sorted(res.ue_states), sib1_rx=res.sib1_rx, paging_rx=res.paging_rx,
+         paged_ids=res.paged_ids, dl_tbs=res.tb_count, dl_ok=res.ok_count,
+         k1_launches=k1, layouts=res.layouts, host_syncs=res.host_syncs,
+         wall_ms_per_slot=res.seconds * 1e3 / SCHED_RACH_SLOTS)
+    # K1's inputs: the first control PDSCH per RNTI (SIB1, paging, RAR, each
+    # Msg4), the first Msg3, and the first data slot after the attach.
+    single = sorted(k for k in rec.first if k[1][0] == "single")
+    check(len({k[0] for k in single}) == 2, f"sched_rach_bcch: single-shot receives {single}")
+    inputs = [x for k in single for x in k1_inputs(
+        f"sched_rach_bcch {'PDSCH' if k[0] == 'dl' else 'Msg3'} rnti={k[1][1]:#x}",
+        rec.first[k])]
+    inputs += k1_inputs("sched_rach_bcch DL data", rec.first[("dl", "new")], [0])
+    return dict(launches=k1, inputs=inputs)
+
+
 KERNEL_NAME = re.compile(r"(layered_kernel|int8_tiled_sweep_kernel)(?:ILi(\d)E)?")
 
 
@@ -1595,6 +2029,16 @@ def main() -> int:
     phase_cell_control(dev)
     per_path["cell_processor"] = phase_per_ue_kernel(
         decoder_cuda, "cell_processor", cpx["inputs"], cpx["launches"])
+    # The MAC and EdgeRIC layers through the app's scheduled loop: K1 in
+    # wire mode once per granted UE and slot, UE side and gNB side.
+    sched = {"sched_cell": phase_sched_cell(cuda_build, decoder_cuda, dev),
+             "sched_ul_harq": phase_sched_ul_harq(cuda_build, decoder_cuda, dev),
+             "sched_rach_bcch": phase_sched_rach_bcch(cuda_build, decoder_cuda, dev)}
+    for name, x in sched.items():
+        per_path[name] = phase_per_ue_kernel(decoder_cuda, name, x["inputs"],
+                                             x["launches"])
+    emit("sched_kernel", kernel=decoder_cuda.KERNEL,
+         per_path={name: per_path[name] for name in sched})
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     zc40_f32, _ = synthetic_wire(encoder, dev, 2, 40, 64, 1.5, gen)
     zc40 = phase_per_ue_kernel(decoder_cuda, "synthetic",

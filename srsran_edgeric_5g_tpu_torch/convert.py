@@ -3,8 +3,10 @@
 A PHY has no weights: what crosses over is the cell description (a uniform
 cell, a full cell, or a per-UE grant layout with its UCI) and the HARQ state
 (the pipeline's int8 carry, or the per-UE float32 soft buffers of the
-heterogeneous cell).  All of it comes as plain Python / numpy values, so
-this module needs nothing of the JAX package.
+heterogeneous cell).  The RIC's networks do have weights: the muApp policy
+and the NeurWIN index network cross over as their state dicts.  All of it
+comes as plain Python / numpy values (or tensors), so this module needs
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from .models.pdsch import PdschConfig
 from .models.pusch import UciConfig
 from .parallel.full_cell import FullCellConfig
 from .parallel.slot_pipeline import CellConfig
+from .ric.neurwin import IndexNet
+from .ric.rl import Policy
 
 
 def cell_from_dict(d: dict) -> CellConfig:
@@ -80,3 +84,33 @@ def soft_buffers_from_numpy(buffers, device: str | torch.device = "cuda"
                              f"{b.dtype} {b.shape}")
         out.append(torch.as_tensor(b, device=dev))
     return out
+
+
+def _load_state(net: torch.nn.Module, state_dict) -> None:
+    """Load a reference state dict (tensors or numpy arrays) as float32;
+    a missing or unexpected key raises."""
+    net.load_state_dict({k: torch.as_tensor(np.asarray(v, dtype=np.float32))
+                         for k, v in state_dict.items()})
+
+
+def policy_from_reference(state_dict, state_dim: int, action_dim: int,
+                          hidden=(64, 64), log_std: float = 0.0,
+                          obs_scale=None) -> Policy:
+    """The port's ``ric.rl.Policy`` from the ``state_dict()`` of the
+    reference's ``ric.rl.Policy``, in eval mode.  ``obs_scale`` (the
+    per-feature [BL, CQI, MB] normalisation ``ppo_train`` attaches to its
+    policy) is carried over when given, so ``TorchWeightPolicy`` serves the
+    features the policy was trained on."""
+    net = Policy(state_dim, action_dim, tuple(hidden), log_std)
+    _load_state(net, state_dict)
+    if obs_scale is not None:
+        net.obs_scale = np.asarray(obs_scale, dtype=np.float32).copy()
+    return net.eval()
+
+
+def index_net_from_reference(state_dict) -> IndexNet:
+    """The port's ``ric.neurwin.IndexNet`` from the ``state_dict()`` of the
+    reference's, in eval mode (the state size read off the first layer)."""
+    net = IndexNet(int(np.asarray(state_dict["linear1.weight"]).shape[1]))
+    _load_state(net, state_dict)
+    return net.eval()

@@ -37,6 +37,14 @@ def symbols_per_slot(extended_cp: bool = False) -> int:
     return NSYMB_PER_SLOT_EXTENDED if extended_cp else NSYMB_PER_SLOT_NORMAL
 
 
+def slots_per_subframe(mu: int) -> int:
+    return 1 << mu
+
+
+def slots_per_frame(mu: int) -> int:
+    return 10 * (1 << mu)
+
+
 def cp_lengths(nfft: int, mu: int, slot_in_subframe: int = 0,
                extended_cp: bool = False) -> tuple[int, ...]:
     """Per-symbol cyclic-prefix lengths in samples for one slot.

@@ -75,3 +75,11 @@ def tbs(nof_re_total: int, target_rate: float, qm: int,
         c = math.ceil((ninfo_p + 24) / 8424)
         return 8 * c * math.ceil((ninfo_p + 24) / (8 * c)) - 24
     return 8 * math.ceil((ninfo_p + 24) / 8) - 24
+
+
+def tbs_for_alloc(nof_prb: int, nof_symbols: int, nof_dmrs_re_per_prb: int,
+                  mcs: McsConfig, nof_layers: int = 1) -> int:
+    """TBS of an allocation of ``nof_prb`` PRBs over ``nof_symbols`` symbols
+    at ``mcs`` (the scheduler's sizing call)."""
+    return tbs(nof_re(nof_prb, nof_symbols, nof_dmrs_re_per_prb),
+               mcs.target_rate, mcs.qm, nof_layers)

@@ -282,12 +282,70 @@ def test_loopback_app_over_the_bridge(tmp_path):
     assert "dl_slot" in names and "ul_slot" in names
 
 
-def test_loopback_app_refuses_scheduled_modes(capsys):
-    """The scheduled modes need the MAC and RIC layers: an error that names
-    ROADMAP Queue A item 3, never a fallback."""
-    for argv in (["--sched", "pf"], ["--edgeric"], ["--rach", "2"], ["--bcch"],
-                 ["--ul-traffic", "100"], ["--ul-fade", "3"]):
-        with pytest.raises(SystemExit) as e:
-            loopback_app.main(argv + ["--device", "cpu"])
-        assert e.value.code == 2
-        assert "Queue A item 3" in capsys.readouterr().err
+class _Picked(Exception):
+    """Raised by a stubbed loop: its argument names the loop main picked."""
+
+
+class _NoBridge:
+    """Stands in for the IQ bridge's server and client (no sockets)."""
+
+    def __init__(self, *a, **k):
+        pass
+
+    def stop(self):
+        pass
+
+
+class _NoAgent:
+    """Stands in for an EdgeRIC agent (no sockets)."""
+
+    tti, weights_age = 0, None
+
+    def __init__(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
+def _picker(loop):
+    def pick(*a, **k):
+        raise _Picked(loop)
+    return pick
+
+
+@pytest.mark.parametrize("argv,loop", [
+    (["--sched", "pf"], "scheduled"), (["--edgeric"], "default"),
+    (["--rach", "2"], "scheduled"), (["--bcch"], "scheduled"),
+    (["--ul-traffic", "100"], "scheduled"), (["--ul-fade", "3"], "default")])
+def test_loopback_app_picks_the_reference_loop(argv, loop, monkeypatch):
+    """The port's main picks the loop the JAX app's main picks: the
+    scheduled loop for --sched, and for --rach, --bcch and --ul-traffic
+    (which turn on pf); the default loop for --edgeric and for a fade
+    alone.  Each loop is stubbed to report that it was picked; the bridge
+    and the agent are stubbed too, so no socket is opened."""
+    import importlib.util
+
+    import srsran_edgeric_5g_tpu.runtime as jrt
+    import srsran_edgeric_5g_tpu_torch.runtime as trt
+    from srsran_edgeric_5g_tpu.models import cell_processor as jcp
+    from srsran_edgeric_5g_tpu.runtime import edgeric as jedg
+    from srsran_edgeric_5g_tpu_torch.runtime import edgeric as tedg
+    spec = importlib.util.spec_from_file_location(
+        "reference_loopback_app", REPO / "tools" / "run_loopback_app.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    for mod in (jrt, trt):
+        monkeypatch.setattr(mod, "IqTxServer", _NoBridge)
+        monkeypatch.setattr(mod, "IqRxClient", _NoBridge)
+    for mod in (jedg, tedg):
+        monkeypatch.setattr(mod, "EdgericAgent", _NoAgent)
+    monkeypatch.setattr(ref, "run_scheduled", _picker("scheduled"))
+    monkeypatch.setattr(jcp.CellProcessor, "process_dl_slot", _picker("default"))
+    monkeypatch.setattr(loopback_app, "run_scheduled", _picker("scheduled"))
+    monkeypatch.setattr(loopback_app, "run_slot_loop", _picker("default"))
+    with pytest.raises(_Picked) as ref_pick:
+        ref.main(argv + ["--slots", "2"])
+    with pytest.raises(_Picked) as port_pick:
+        loopback_app.main(argv + ["--slots", "2", "--device", "cpu"])
+    assert str(port_pick.value) == str(ref_pick.value) == loop
