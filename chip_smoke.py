@@ -130,6 +130,38 @@ Phases (any failure exits non-zero):
                TB; sched_rach_bcch's first control PDSCH per RNTI (SIB1,
                paging, RAR, Msg4), its first Msg3 and a data TB after the
                attach; its time per launch, plain, bound.
+ 25. ric_train — the RIC's training half on the card: ppo_train (2
+               iterations x 1024 steps) on the digital twin of the scheduled
+               cell (4 UEs, 106 PRB) and neurwin_train (20 episodes), finite
+               weights and rewards; the trained policy saved as a checkpoint,
+               loaded by MuAppScheduler's TorchWeightPolicy, and serving
+               RIC_SERVE_SLOTS slots of the scheduled cell (algorithm "rl"
+               in the EdgeRIC stand-in) with every TB delivered; ms per
+               iteration and episode.
+
+Between phases 5 and 6 (they reuse the slice phase's tensors):
+  5a. multi_cell — bench.py --cells=4: 4 carriers x 64 slots of the 20 MHz
+               4-UE data plane, each carrier with its own RNTIs, through 25
+               dB AWGN: multi_cell_dl_slot_batch, multi_cell_ul_slot_batch
+               with K1 launched exactly once (counts read around the UL
+               call), every one of the 1024 TBs exact; TIMED_STEPS chained
+               steps (ms per cell-slot beside the slice's ms per slot), the
+               per-stage breakdown, the device profile; K1 on this path's
+               decoder input with the other batched paths (phase 11).
+  5b. fronthaul — the slice's DL resource grids (256 slots x 14 x 1272),
+               scaled to a peak of 1 through iq_scaling, BFP-compressed at 9
+               and 14 bits on the card: mantissas and exponents equal to the
+               CPU's, the decompressed grid's SNR above FH_SNR_FLOOR_DB, one
+               slot framed and deframed through native/ofh to the same grid;
+               ms per slot of compress and decompress.
+  5c. time_block — one second of the 20 MHz stream (1000 slots) modulated
+               and demodulated in 4 time blocks on the card, DFT windows 16
+               samples early: equal to one block and to the grids within
+               tests/test_timeblock.py's tolerance; ms per slot.
+  5d. decode_schedules — decode("flooding") and decode("layered_rolls_i8")
+               on the slice's decoder input (2048 x BG1 Zc = 224): hard bits
+               equal to the CPU's (flooding on its first 256 codeblocks,
+               within FLOODING_BIT_SHARE), their ms.
 
 Prints the card (nvidia-smi name, power limit), a JSON line per phase (the
 last, "total", the run's seconds from the build on), the
@@ -204,6 +236,29 @@ SCHED_SWITCH_TTI = 32          # max_cqi weights before, round_robin from here
 SCHED_PROFILE = (24, 32)       # the slots profiled in a warm repeat of sched_cell
 SCHED_UL_SLOTS = 24
 SCHED_RACH_SLOTS = 40
+# bench.py --cells=4: NC carriers of the 20 MHz 4-UE data plane, MC_SLOTS
+# slots each (2048 codeblocks: the slice phase's decode shape).
+MC_CARRIERS = 4
+MC_SLOTS = 64
+# The fronthaul: BFP widths, and the decompressed grid's SNR floor against
+# the peak-scaled input.  On the CPU (8 slots of this grid, 3 seeds) 9 bits
+# gave 49.77-49.81 dB and 14 bits 80.39-80.43 dB.
+FH_WIDTHS = (9, 14)
+FH_SNR_FLOOR_DB = {9: 48.0, 14: 78.0}
+# One second of the 20 MHz stream in TB_BLOCKS time blocks on one card,
+# DFT windows TB_SHIFT samples early; tests/test_timeblock.py's tolerance.
+TB_SLOTS = 1000
+TB_BLOCKS = 4
+TB_SHIFT = 16
+TB_ATOL = 3e-4
+# flooding's sums run in another order on the card (index_add_'s atomics):
+# the share of its hard bits that may differ from the CPU's.
+FLOODING_BIT_SHARE = 1e-4
+FLOODING_CPU_CODEBLOCKS = 256
+# The RIC's training half at the scheduled cell's 4 UEs and 106 PRB.
+RIC_PPO = dict(iterations=2, batch_steps=1024)
+RIC_NEURWIN_EPISODES = 20
+RIC_SERVE_SLOTS = 8
 
 
 def check(cond, msg: str) -> None:
@@ -426,8 +481,8 @@ def phase_timing(sp, dec, dev, ctx):
         "ul_desegment": lambda: segmenter.desegment_tb(hard, seg),
         "ul_slot_batch": lambda: sp.ul_slot_batch(rx, rntis, cell, device=dev),
     }
-    emit("breakdown_ms_per_step", slots_per_step=s_batch,
-         **{k: cuda_ms(f, 5) for k, f in stages.items()})
+    breakdown = {k: cuda_ms(f, 5) for k, f in stages.items()}
+    emit("breakdown_ms_per_step", slots_per_step=s_batch, **breakdown)
 
     # The kernel alone at the main path's settings (wire, early stop), its
     # plain version, fixed-sweep and f32-mode times, and the bound.
@@ -460,7 +515,8 @@ def phase_timing(sp, dec, dev, ctx):
          wire_fixed_6_ms=fixed[NUM_ITERS], f32_fixed_6_ms=ms_f32,
          plain_wire_early_stop_ms=plain_ms, bytes=n_bytes, bound_ms=bound_ms,
          bound_by=bound_by)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                slice_ms_per_slot=slot_ms, slice_breakdown=breakdown)
 
 
 def kernel_bound(g, zc, total_sweeps, n_bytes):
@@ -1911,6 +1967,275 @@ def phase_sched_rach_bcch(cuda_build, dec, dev):
 KERNEL_NAME = re.compile(r"(layered_kernel|int8_tiled_sweep_kernel)(?:ILi(\d)E)?")
 
 
+def phase_multi_cell(sp, cuda_build, dec, dev, tm):
+    """bench.py --cells=4 on the port: MC_CARRIERS carriers of the 20 MHz
+    4-UE data plane (106 PRB, 4 UEs x 26 PRB, 64QAM r0.5), MC_SLOTS slots
+    each, every carrier with its own RNTIs (0x4601 + arange(16) by
+    carrier), through 25 dB AWGN: multi_cell_dl_slot_batch, then
+    multi_cell_ul_slot_batch with K1's launches read around the UL call
+    (one decode of every codeblock of every carrier); every TB exact.  Then
+    TIMED_STEPS chained DL+UL steps (ms per cell-slot beside the single-
+    carrier slice's), the per-stage breakdown and the device profile."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder, segmenter
+    cell = main_cell(sp)
+    nc, s, u = MC_CARRIERS, MC_SLOTS, cell.nof_ue
+    t = cell.timing
+    seg, rm = sp._plans(cell)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    payloads = torch.randint(0, 2, (nc, s, u, cell.derived_tbs()), generator=gen,
+                             device=dev, dtype=torch.int8)
+    rntis = (torch.arange(nc * u, device=dev) + 0x4601).reshape(nc, u)
+    td = sp.multi_cell_dl_slot_batch(payloads, rntis, cell, device=dev)
+    noise = awgn(td, SNR_DB, gen)
+    rx = td + noise
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    res = sp.multi_cell_ul_slot_batch(rx, rntis, cell, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    pay, ok, nv, cfo, soft = res
+    check(tuple(td.shape) == (nc, s, t.cp.total), f"multi_cell DL shape {td.shape}")
+    check(launches.get(dec.KERNEL, 0) == 1,
+          f"multi_cell UL: {launches} (one K1 launch expected)")
+    check(bool(ok.all()), f"multi_cell: {int((~ok).sum())} of {ok.numel()} TBs failed CRC")
+    check(torch.equal(pay, payloads), "multi_cell: payload mismatch")
+    check(tuple(soft.shape) == (nc, s, u * seg.c, rm.n_cb) and soft.dtype == torch.int8,
+          f"multi_cell soft carry {tuple(soft.shape)}")
+    check(bool(torch.isfinite(nv).all() and (nv > 0).all() and torch.isfinite(cfo).all()),
+          "multi_cell noise variance / cfo")
+    emit("multi_cell", cell="106PRB nfft1536 4UEx26PRB qam64 r0.5", carriers=nc,
+         slots_per_carrier=s, snr_db=SNR_DB, tbs=cell.derived_tbs(), tb_ok=int(ok.sum()),
+         tbs_total=ok.numel(), codeblocks=nc * s * u * seg.c, bg=seg.bg, zc=seg.zc,
+         ul_launches=launches, iq_bytes=rx.numel() * rx.element_size())
+
+    def step(eps):
+        td = sp.multi_cell_dl_slot_batch(payloads ^ eps, rntis, cell, device=dev)
+        r = sp.multi_cell_ul_slot_batch(td + noise, rntis, cell, device=dev)
+        return r[0][0, 0, 0, 0] & 0, r[1]
+
+    eps = torch.zeros((), dtype=torch.int8, device=dev)
+    for _ in range(2):
+        eps, ok = step(eps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        eps, ok = step(eps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool(ok.all()), "multi_cell timed steps: CRC")
+    cell_slot_ms = dt / (TIMED_STEPS * nc * s) * 1e3
+    emit("multi_cell_e2e", steps=TIMED_STEPS, cell_slots_per_step=nc * s, seconds=dt,
+         ms_per_cell_slot=cell_slot_ms, x_real_time=(1.0 / (1 << cell.mu)) / cell_slot_ms,
+         single_carrier_ms_per_slot=tm["slice_ms_per_slot"],
+         ratio_to_single_carrier=cell_slot_ms / tm["slice_ms_per_slot"],
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    ci = sp._cell_ci(rntis, cell, nc, s)
+    flat_pay = payloads.reshape(-1, payloads.shape[-1])
+    syms = sp._dl_code(flat_pay, None, cell, ci=ci).reshape(nc * s, u, -1)
+    rx_flat = rx.reshape(nc * s, -1)
+    llr = sp._ul_front(rx_flat, None, cell, ci=ci)[0].reshape(nc * s * u, -1)
+    full = sp._decoder_input(llr, cell)
+    hard, _ = decoder.decode(full, seg.bg, seg.zc, NUM_ITERS, schedule="wire_auto")
+    stages = {
+        "dl_code": lambda: sp._dl_code(flat_pay, None, cell, ci=ci),
+        "dl_grid_ofdm": lambda: sp._dl_grid_ofdm(syms, cell),
+        "dl_total": lambda: sp.multi_cell_dl_slot_batch(payloads, rntis, cell, device=dev),
+        "ul_front": lambda: sp._ul_front(rx_flat, None, cell, ci=ci),
+        "ul_dematch": lambda: sp._decoder_input(llr, cell),
+        "ul_decode": lambda: decoder.decode(full, seg.bg, seg.zc, NUM_ITERS,
+                                            schedule="wire_auto"),
+        "ul_desegment": lambda: segmenter.desegment_tb(hard, seg),
+        "ul_total": lambda: sp.multi_cell_ul_slot_batch(rx, rntis, cell, device=dev),
+    }
+    emit("multi_cell_breakdown_ms_per_step", cell_slots_per_step=nc * s,
+         **{k: cuda_ms(f, 5) for k, f in stages.items()},
+         single_carrier_breakdown_ms_per_step=tm["slice_breakdown"])
+
+    def prof_step():
+        nonlocal eps
+        eps, _ = step(eps)
+
+    emit("multi_cell_device_profile",
+         **device_profile(prof_step, 3, cell_slot_ms * nc * s))
+    return dict(decoder_input=full, launches=launches, bg=seg.bg, zc=seg.zc)
+
+
+def phase_fronthaul(sp, dev, ctx):
+    """The O-RAN fronthaul on the card: the slice phase's DL resource grids
+    (S_BATCH slots x 14 symbols x 1272 subcarriers), scaled to a peak of 1
+    through iq_scaling, BFP-compressed at FH_WIDTHS; mantissas and exponents
+    bit-equal to the CPU's on the same grids; the decompressed grid's SNR
+    against the scaled input above FH_SNR_FLOOR_DB; one slot framed and
+    deframed through native/ofh back to the same decompressed grid; ms per
+    slot of compress and decompress."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops import ofh_compression as comp
+    from srsran_edgeric_5g_tpu_torch.runtime import ofh
+    cell = ctx["cell"]
+    payloads = ctx["payloads"]
+    s = payloads.shape[0]
+    syms = sp._dl_code(payloads.reshape(-1, payloads.shape[-1]), ctx["rntis"], cell)
+    grid = sp._dl_grid(syms.reshape(s, cell.nof_ue, -1), cell)
+    peak = float(torch.view_as_real(grid).abs().max())
+    scaling = 1.0 / peak
+    grid_cpu = grid.cpu()
+    rows = {}
+    for w in FH_WIDTHS:
+        mant, exp = comp.bfp_compress(grid, w, scaling)
+        mant_c, exp_c = comp.bfp_compress(grid_cpu, w, scaling)
+        check(torch.equal(mant.cpu(), mant_c) and torch.equal(exp.cpu(), exp_c),
+              f"fronthaul width {w}: card != CPU")
+        dec = comp.bfp_decompress(mant, exp)
+        ref = grid * scaling
+        snr_db = 10.0 * math.log10(float(ref.abs().pow(2).sum())
+                                   / float((dec - ref).abs().pow(2).sum()))
+        check(snr_db > FH_SNR_FLOOR_DB[w], f"fronthaul width {w}: SNR {snr_db} dB")
+        frames = ofh.frame_dl_slot(grid[0], 1, 0, 0, 0, width=w, iq_scaling=scaling,
+                                   device=dev)
+        back = ofh.deframe_dl_slot(frames, w, device=dev)
+        check(len(frames) == grid.shape[1] and torch.equal(back, dec[0]),
+              f"fronthaul width {w}: framed slot != decompressed grid")
+        rows[w] = dict(snr_db=snr_db, snr_floor_db=FH_SNR_FLOOR_DB[w],
+                       exp_max=int(exp.max()), frame_bytes=len(frames[0]),
+                       compress_ms_per_slot=cuda_ms(
+                           lambda w=w: comp.bfp_compress(grid, w, scaling), 5) / s,
+                       decompress_ms_per_slot=cuda_ms(
+                           lambda: comp.bfp_decompress(mant, exp), 5) / s)
+    emit("fronthaul", slots=s, grid=list(grid.shape), peak=peak, iq_scaling=scaling,
+         widths=rows)
+
+
+def phase_time_block(dev):
+    """One second of the 20 MHz stream (TB_SLOTS slots of random unit-power
+    grids) modulated and demodulated in TB_BLOCKS time blocks on the card
+    with the DFT windows TB_SHIFT samples early: every slot equal to the
+    one-block demodulation and to the transmitted grids within TB_ATOL;
+    ms per slot."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops import ofdm
+    from srsran_edgeric_5g_tpu_torch.parallel import timeblock
+    from srsran_edgeric_5g_tpu_torch.ran import numerology
+    t = numerology.slot_timing(nof_prb=106, nfft=1536, mu=0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    shape = (TB_SLOTS, t.nsymb, t.nof_subc)
+    grids = torch.complex(torch.randn(shape, generator=gen, device=dev),
+                          torch.randn(shape, generator=gen, device=dev)) / math.sqrt(2)
+    mesh = timeblock.make_time_mesh(devices=[dev] * TB_BLOCKS)
+    td = timeblock.modulate_stream_sharded(grids, t, mesh)
+    mod_err = float((td - ofdm.modulate_slot(grids, t)).abs().max())
+    check(mod_err < TB_ATOL, f"time_block modulate: {mod_err}")
+    blocks = timeblock.demodulate_stream_sharded(td, t, mesh, shift=TB_SHIFT)
+    single = timeblock.demodulate_stream_sharded(td, t, [dev], shift=TB_SHIFT)
+    vs_single = float((blocks - single).abs().max())
+    vs_grids = float((blocks - grids).abs().max())
+    check(vs_single < TB_ATOL and vs_grids < TB_ATOL,
+          f"time_block: {vs_single} from one block, {vs_grids} from the grids")
+    ms = cuda_ms(lambda: timeblock.demodulate_stream_sharded(td, t, mesh,
+                                                             shift=TB_SHIFT), 3)
+    ms_single = cuda_ms(lambda: timeblock.demodulate_stream_sharded(
+        td, t, [dev], shift=TB_SHIFT), 3)
+    emit("time_block", slots=TB_SLOTS, blocks=TB_BLOCKS, shift=TB_SHIFT,
+         samples=td.numel(), max_err_vs_one_block=vs_single, max_err_vs_grids=vs_grids,
+         modulate_max_err=mod_err, demod_ms_per_slot=ms / TB_SLOTS,
+         one_block_demod_ms_per_slot=ms_single / TB_SLOTS)
+
+
+def phase_decode_schedules(sp, ctx):
+    """decode("flooding") and decode("layered_rolls_i8") on the card on the
+    slice's full decoder input (2048 x BG1 Zc = 224, int8 wire): hard bits
+    and ok equal to the same call on the CPU (flooding's float sums within
+    FLOODING_BIT_SHARE of the bits; flooding has no early stop, so each
+    codeblock is decoded alone and the CPU decodes the first
+    FLOODING_CPU_CODEBLOCKS), and their ms."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder
+    full = ctx["decoder_input"]
+    seg, _ = sp._plans(ctx["cell"])
+    rows = {}
+    for name, x, n_cpu in (("flooding", full.float(), FLOODING_CPU_CODEBLOCKS),
+                           ("layered_rolls_i8", full, full.shape[0])):
+        hard, ok = decoder.decode(x, seg.bg, seg.zc, NUM_ITERS, schedule=name)
+        hard_c, ok_c = decoder.decode(x[:n_cpu].cpu(), seg.bg, seg.zc, NUM_ITERS,
+                                      schedule=name)
+        hard, ok = hard[:n_cpu], ok[:n_cpu]
+        differ = int((hard.cpu() != hard_c).sum())
+        if name == "flooding":
+            check(differ <= FLOODING_BIT_SHARE * hard.numel(),
+                  f"flooding: {differ} hard bits differ from the CPU's")
+        else:
+            check(differ == 0 and torch.equal(ok.cpu(), ok_c),
+                  f"layered_rolls_i8: {differ} hard bits differ from the CPU's")
+        rows[name] = dict(codeblocks_compared=n_cpu, ok=int(ok.sum()),
+                          ok_cpu=int(ok_c.sum()), bits_differing=differ,
+                          ms=cuda_ms(lambda x=x, name=name: decoder.decode(
+                              x, seg.bg, seg.zc, NUM_ITERS, schedule=name), 3, warmup=1))
+    emit("decode_schedules", codeblocks=full.shape[0], bg=seg.bg, zc=seg.zc,
+         num_iters=NUM_ITERS, schedules=rows)
+
+
+def phase_ric_train(cuda_build, dec, dev):
+    """The RIC's training half on the card: ppo_train (RIC_PPO) on the twin
+    of the scheduled cell (4 UEs, 106 PRB) and neurwin_train
+    (RIC_NEURWIN_EPISODES episodes); finite weights and rewards.  The trained
+    policy, saved as a checkpoint, is loaded by MuAppScheduler's
+    TorchWeightPolicy and serves RIC_SERVE_SLOTS slots of the scheduled cell
+    (the EdgeRIC stand-in, algorithm "rl"): every DL TB delivered; ms per
+    training iteration and episode."""
+    import os
+    import tempfile
+
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ric import AlgorithmSwitch, MuAppScheduler, neurwin, rl
+    from srsran_edgeric_5g_tpu_torch.ric.muapp import TorchWeightPolicy
+    env = rl.EdgeRicSimEnv(rl.EnvConfig(num_ues=CELL_PHY["nof_ue"], nof_prb=106,
+                                        seed=SEED))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    policy, history = rl.ppo_train(env, seed=SEED, device=dev, **RIC_PPO)
+    torch.cuda.synchronize()
+    ppo_s = time.perf_counter() - t0
+    params = list(policy.parameters())
+    check(all(p.device.type == "cuda" and bool(torch.isfinite(p).all()) for p in params)
+          and all(math.isfinite(h) for h in history), f"ppo_train: rewards {history}")
+    t0 = time.perf_counter()
+    net, nw_hist = neurwin.neurwin_train(neurwin.ArmEnv(neurwin.ArmConfig(seed=SEED)),
+                                         episodes=RIC_NEURWIN_EPISODES, seed=SEED,
+                                         device=dev)
+    torch.cuda.synchronize()
+    nw_s = time.perf_counter() - t0
+    check(all(bool(torch.isfinite(p).all()) for p in net.parameters())
+          and all(math.isfinite(h) for h in nw_hist), "neurwin_train: not finite")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "policy.pt")
+        torch.save(policy, path)
+        served = TorchWeightPolicy(path)
+        switch = AlgorithmSwitch(os.path.join(tmp, "scheduling_algorithm"))
+        switch.set("rl")
+        ric = StandInRic(lambda m, switch: MuAppScheduler(m, torch_policy=served,
+                                                          switch=switch), switch, {})
+        res, k1, _, rec = run_sched(cuda_build, dec, dev, "ric_train_serve",
+                                    RIC_SERVE_SLOTS, agent=ric)
+    grants = sum(len(r["grants"]) for r in rec.slots)
+    check(res.code == 0 and res.dl_dropped == 0 and res.ok_count == res.tb_count == grants
+          and k1 == grants, f"ric_train serve: {res.ok_count}/{res.tb_count} TBs, "
+                            f"{grants} grants, {k1} K1 launches")
+    check(set(ric.algorithms) == {"rl"} and ric.weights_age == 1,
+          f"ric_train serve: algorithms {set(ric.algorithms)}, age {ric.weights_age}")
+    emit("ric_train", ppo=dict(RIC_PPO, seconds=ppo_s,
+                               ms_per_iteration=ppo_s * 1e3 / RIC_PPO["iterations"],
+                               mean_episode_rewards=history),
+         neurwin=dict(episodes=RIC_NEURWIN_EPISODES, seconds=nw_s,
+                      ms_per_episode=nw_s * 1e3 / RIC_NEURWIN_EPISODES,
+                      last_episode_rewards=nw_hist[-3:]),
+         serve=dict(slots=RIC_SERVE_SLOTS, tbs=res.tb_count, tb_ok=res.ok_count,
+                    k1_launches=k1, weighted_slots=sum(
+                        r["weights"] is not None for r in rec.slots)))
+
+
 def kernel_name(line: str):
     """layered_kernel<M> (M: 0 f32, 1 wire, 2 int8) or int8_tiled_sweep_kernel
     from a line naming a mangled kernel, else None."""
@@ -1995,6 +2320,12 @@ def main() -> int:
     phase_small(sp, dev)
     max_err = phase_kernels(sp, decoder_cuda, encoder, dev, ctx)
     tm = phase_timing(sp, decoder_cuda, dev, ctx)
+    # bench.py --cells=4: four carriers in one slot batch, one K1 launch per
+    # UL step; then the modules of this slice without a kernel.
+    mc = phase_multi_cell(sp, cuda_build, decoder_cuda, dev, tm)
+    phase_fronthaul(sp, dev, ctx)
+    phase_time_block(dev)
+    phase_decode_schedules(sp, ctx)
     fcx = phase_full_cell(fcm, sp, cuda_build, decoder_cuda, dev,
                           fcm.FullCellConfig(), "full_cell", SNR_DB, FC_TIMED_STEPS)
     k2 = phase_kernel_int8(decoder_cuda, encoder, cuda_build, dev,
@@ -2010,6 +2341,7 @@ def main() -> int:
             fcm, sp, cuda_build, decoder_cuda, dev, fcm.FullCellConfig(**QAM256_KW),
             "qam256_full_cell", QAM256_SNR_DB, FC_TIMED_STEPS),
     }
+    paths["multi_cell"] = mc
     per_path = {name: phase_path_kernel(decoder_cuda, name, path)
                 for name, path in paths.items()}
     # The per-UE channel processors: K1 in wire mode per UE and
@@ -2039,6 +2371,7 @@ def main() -> int:
                                              x["launches"])
     emit("sched_kernel", kernel=decoder_cuda.KERNEL,
          per_path={name: per_path[name] for name in sched})
+    phase_ric_train(cuda_build, decoder_cuda, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     zc40_f32, _ = synthetic_wire(encoder, dev, 2, 40, 64, 1.5, gen)
     zc40 = phase_per_ue_kernel(decoder_cuda, "synthetic",

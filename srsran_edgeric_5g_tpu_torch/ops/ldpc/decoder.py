@@ -3,9 +3,13 @@
 Port of ``srsran_edgeric_5g_tpu/ops/ldpc/decoder.py``: the decode plan, the
 min-sum check update, the gather formulation of the ``layered`` and
 ``layered_wire`` schedules with their batch-granularity early stop, the
-parity check, and the ``decode`` dispatch.  ``auto``, ``wire_auto`` and
-``pallas`` on a CUDA tensor run the hand-written kernel in ``decoder_cuda``;
-every other schedule of the reference belongs to a later slice of the port.
+``flooding`` schedule and the reference's int8 arithmetic
+(``layered_rolls_i8``) as plain torch on any device, the parity check, and
+the ``decode`` dispatch.  ``auto``, ``wire_auto`` and ``pallas`` on a CUDA
+tensor run the hand-written kernel in ``decoder_cuda``.  The reference's
+other schedules are TPU formulations (lane rolls, wave packing, compressed
+or bf16 message storage) of ``layered`` or ``layered_wire`` and are refused
+with the name of the schedule that computes the same decode.
 
 State per layer r: posterior LLRs L (B, cols*Zc) and check-to-variable
 messages R (B, rows, max_deg, Zc).  Update:
@@ -23,18 +27,21 @@ import functools
 import numpy as np
 import torch
 
+from ..modulation import LLR_MAX, RANGE_LIMIT
 from .graph import get_graph
 
 DEFAULT_SCALING = 0.8
 DEFAULT_ITERS = 6  # reference default (ldpc_decoder_impl.h:216)
 
-# Schedules of the reference that this slice does not port yet.
-_LATER_SLICE = frozenset({
-    "flooding", "layered_rolls", "layered_rolls_bf16",
-    "layered_rolls_wire", "layered_rolls_wire_i8s", "layered_rolls_mixed",
-    "layered_rolls_i8", "layered_rolls_cr", "layered_rolls_cr_f32",
-    "layered_waves", "layered_waves_bf16",
-})
+# The reference's TPU formulations, each with the port's schedule that
+# computes the same decode (the bf16 forms round their message storage).
+_TPU_FORMS = {
+    "layered_rolls": "layered", "layered_rolls_bf16": "layered",
+    "layered_rolls_mixed": "layered", "layered_rolls_cr": "layered",
+    "layered_rolls_cr_f32": "layered", "layered_waves": "layered",
+    "layered_waves_bf16": "layered",
+    "layered_rolls_wire": "layered_wire", "layered_rolls_wire_i8s": "layered_wire",
+}
 
 # Wire-domain limits (reference int8 LLR semantics): load clamp, v2c
 # saturation / min-tracker cap, and the value a pinned (fixed) bit takes.
@@ -127,6 +134,12 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
         kernel's f32 mode with 'layered''s hard rule ``l <= 0`` at every
         lifting size, exiting per codeblock (the batch exit of 'layered'
         gives the same bits on every input measured: ROADMAP.md Queue C).
+      * 'flooding': every check row updated in parallel from one
+        posterior per iteration, ``num_iters`` iterations (no early stop),
+        f32; plain torch on any device.
+      * 'layered_rolls_i8': the reference's fixed-point decoder arithmetic
+        (int8 wire load, saturating v2c, truncating scale, ±127 promotion)
+        in int32 lanes, batch early stop; plain torch on any device.
     """
     if schedule == "auto":
         if llrs.device.type == "cpu":
@@ -153,11 +166,16 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
         hard, ok, _ = decode_layered(llrs, bg, zc, num_iters, scaling,
                                      wire=True, early_stop=early_stop)
         return hard, ok
-    if schedule in _LATER_SLICE:
+    if schedule == "flooding":
+        return _decode_flooding(llrs, bg, zc, num_iters, scaling)
+    if schedule == "layered_rolls_i8":
+        return _decode_layered_i8(llrs, bg, zc, num_iters, scaling, early_stop)
+    if schedule in _TPU_FORMS:
         raise NotImplementedError(
-            f"decode schedule {schedule!r} is not ported yet; the port has "
-            "'auto', 'layered', 'layered_wire', 'wire_auto' and 'pallas' "
-            "(ROADMAP.md, Queue A/B lists the later slices)")
+            f"decode schedule {schedule!r} is the reference's TPU formulation "
+            f"of {_TPU_FORMS[schedule]!r}; decode with schedule="
+            f"{_TPU_FORMS[schedule]!r} (or 'wire_auto' / 'auto', which run "
+            "the CUDA kernel on the card)")
     if schedule not in ("layered", "layered_wire"):
         raise ValueError(f"unknown decode schedule {schedule!r}")
     return _decode_layered(llrs, bg, zc, num_iters, scaling,
@@ -172,6 +190,92 @@ def _decode_layered(llrs, bg, zc, num_iters, scaling, wire, early_stop):
     l, r_msgs = init_state(llrs, plan, wire)
     for _ in range(num_iters):
         sweep(l, r_msgs, bg, zc, scaling, wire)
+        if early_stop and bool(check_parity(hard_decision(l), bg, zc).all()):
+            break
+    hard = hard_decision(l)
+    return hard[:, :plan.kb * zc], check_parity(hard, bg, zc)
+
+
+def _decode_flooding(llrs, bg, zc, num_iters, scaling):
+    """Flooding schedule: per iteration every check row at once,
+    t = (Lch + scatter_add(R))[edges] - R, R' = minsum(t)."""
+    plan = get_decode_plan(bg, zc)
+    pt = _plan_tensors(bg, zc, llrs.device)
+    b = llrs.shape[0]
+    n_full = plan.cols * zc
+    lmask = pt.mask[None]                                      # (1, rows, deg, 1)
+    # One dummy slot at the end absorbs the padded edges (their R is 0).
+    lch = torch.cat([llrs.to(torch.float32),
+                     llrs.new_zeros((b, 1), dtype=torch.float32)], dim=-1)
+
+    def posterior(r_msgs):
+        return lch.index_add(1, pt.gather_flat, r_msgs.reshape(b, -1))
+
+    r_msgs = torch.zeros((b, plan.rows, plan.max_deg, zc), dtype=torch.float32,
+                         device=llrs.device)
+    for _ in range(num_iters):
+        t = posterior(r_msgs)[:, pt.gather_flat].reshape(r_msgs.shape) - r_msgs
+        r_msgs = _minsum(t, lmask, scaling, deg_axis=2)
+    hard = hard_decision(posterior(r_msgs)[:, :n_full])
+    return hard[:, :plan.kb * zc], check_parity(hard, bg, zc)
+
+
+def _decode_layered_i8(llrs, bg, zc, num_iters, scaling, early_stop):
+    """'layered_rolls_i8': layered min-sum in the reference decoder's
+    fixed-point semantics (ldpc_decoder_avx2.cpp, log_likelihood_ratio.h),
+    in int32 lanes holding int8 values.
+
+      * an int8 input is the wire; a float input is wire-quantised first
+        (round(x * 120/20), clipped to ±120);
+      * load clamps the posteriors to ±64; finite LLRs live in [-120, 120],
+        ±127 marks a fixed bit;
+      * v2c = L - R saturates at ±120, but an infinite L stays infinite;
+      * min trackers start at 120; the 0.8 scale truncates
+        (floor(mag * floor(0.8 * 2^16) / 2^16)) and skips infinities;
+      * the posterior update is a promotion sum: beyond ±120 the bit is
+        pinned at ±127.
+    The lane rolls of the reference are the plan's gathers here (the same
+    edge order per row, so the first-min tie rule picks the same edge)."""
+    plan = get_decode_plan(bg, zc)
+    pt = _plan_tensors(bg, zc, llrs.device)
+    b = llrs.shape[0]
+    maxv, inf = int(WIRE_LLR_MAX), int(WIRE_LLR_INF)
+    if llrs.dtype == torch.int8:
+        q = llrs.to(torch.int32)
+    else:
+        q = torch.clamp(torch.round(llrs.to(torch.float32) * float(
+            np.float32(LLR_MAX / RANGE_LIMIT))), -LLR_MAX, LLR_MAX).to(torch.int32)
+    l = torch.clamp(q, -int(WIRE_LOAD_CLAMP), int(WIRE_LOAD_CLAMP))
+    r_msgs = torch.zeros((b, plan.rows, plan.max_deg, zc), dtype=torch.int32,
+                         device=llrs.device)
+    scale16 = int(scaling * 65536)
+
+    def sweep_i8():
+        for r, (idx, deg) in enumerate(zip(pt.row_idx, pt.row_deg)):
+            le = l[:, idx].reshape(b, deg, zc)
+            t = torch.clamp(le - r_msgs[:, r, :deg], -maxv, maxv)
+            t = torch.where(le.abs() >= inf, le, t)           # inf propagates
+            at = torch.clamp(t.abs(), max=maxv)
+            m1 = at.amin(dim=1, keepdim=True)
+            first_min = (torch.arange(deg, device=l.device)[:, None]
+                         == at.argmin(dim=1, keepdim=True))
+            m2 = torch.where(first_min, inf, at).amin(dim=1, keepdim=True)
+            mag = torch.where(first_min, m2, m1)
+            mag = torch.where(mag >= inf, inf, (mag * scale16) >> 16)
+            neg = t < 0
+            sign_all = (neg.sum(dim=1, keepdim=True) & 1) == 1
+            r_new = torch.where(sign_all ^ neg, -mag, mag)
+            v = t + r_new
+            t_p, t_n = t > maxv, t < -maxv
+            r_p, r_n = r_new > maxv, r_new < -maxv
+            v = torch.where(v > maxv, inf, torch.where(v < -maxv, -inf, v))
+            v = torch.where((t_p & ~r_n) | (r_p & ~t_n), inf, v)
+            v = torch.where((t_n & ~r_p) | (r_n & ~t_p), -inf, v)
+            l[:, idx] = v.reshape(b, -1)
+            r_msgs[:, r, :deg] = r_new
+
+    for _ in range(num_iters):
+        sweep_i8()
         if early_stop and bool(check_parity(hard_decision(l), bg, zc).all()):
             break
     hard = hard_decision(l)

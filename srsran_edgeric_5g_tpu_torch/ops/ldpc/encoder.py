@@ -90,12 +90,22 @@ def _row_sums(flat_bits: torch.Tensor, idx: torch.Tensor,
     return torch.matmul(sel, rot)
 
 
-def encode(msg_bits: torch.Tensor, bg: int, zc: int) -> torch.Tensor:
+_IMPLS = ("auto", "gather", "rolls")
+
+
+def encode(msg_bits: torch.Tensor, bg: int, zc: int,
+           impl: str = "auto") -> torch.Tensor:
     """Encode int8 {0,1} messages (B, K=kb*Zc) -> full codewords (B, cols*Zc).
 
     Filler bits must already be zero in ``msg_bits`` (the segmenter sets
     them); they encode as zeros and are handled by rate matching.
-    """
+
+    ``impl`` takes the reference's names, and every one is the gather form
+    here: the reference's 'rolls' (lane rotations + XORs, its TPU path)
+    computes the same codeword, and 'auto' picks between the two by
+    backend."""
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown encoder impl {impl!r}; valid: {_IMPLS}")
     plan = get_encode_plan(bg, zc, msg_bits.device)
     b = msg_bits.shape[0]
 

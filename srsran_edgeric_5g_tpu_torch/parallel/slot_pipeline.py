@@ -1,8 +1,8 @@
 """Cell slot pipeline, data plane: multi-UE DL encode + UL decode.
 
-Port of ``srsran_edgeric_5g_tpu/parallel/slot_pipeline.py`` (the SISO and
-the multi-layer programs; the multi-cell ones are not ported).  One call
-processes a batch of slots for all UEs of a cell.  UE allocations
+Port of ``srsran_edgeric_5g_tpu/parallel/slot_pipeline.py`` (the SISO,
+multi-cell and multi-layer programs).  One call processes a batch of slots
+for all UEs of a cell, or of several same-config carriers.  UE allocations
 are uniform-width and contiguous from a static first PRB, so every per-UE
 gather/scatter is a slice + reshape.  The reference's mesh sharding has no
 counterpart here: on one card the UE and codeblock axes are plain batch
@@ -22,10 +22,15 @@ amplitude (ports 0/1 on the even subcarriers with frequency OCC, ports 2/3
 on the odd ones), and on the receive side an OCC-despread estimate per
 (antenna, port) and the LxP whitened-Gram MMSE.
 
+Multi-cell (``multi_cell_dl_slot_batch`` / ``multi_cell_ul_slot_batch``):
+NC independent carriers of one configuration flatten into the slot batch,
+rows cell-major, then slot, then UE, each carrier with its own RNTIs; one
+decode covers every codeblock of every carrier.
+
 The entry points (``dl_slot``, ``dl_slot_batch``, ``ul_slot``,
-``ul_slot_batch`` and the ``*_mimo`` pair) take ``device`` ("cuda" by
-default) and move their inputs there; a CUDA request on a host without a
-CUDA device raises.
+``ul_slot_batch``, the multi-cell pair and the ``*_mimo`` pair) take
+``device`` ("cuda" by default) and move their inputs there; a CUDA request
+on a host without a CUDA device raises.
 """
 
 from __future__ import annotations
@@ -143,18 +148,29 @@ def _scrambling_inits(rntis: torch.Tensor, cell: CellConfig,
     return ((rntis.to(torch.int64) << 15) + cell.n_id).repeat(reps)
 
 
-def _dl_code(payloads: torch.Tensor, rntis: torch.Tensor, cell: CellConfig,
-             rv: int = 0) -> torch.Tensor:
+def _cell_ci(rntis: torch.Tensor, cell: CellConfig, nc: int,
+             s: int) -> torch.Tensor:
+    """(NC, U) RNTIs -> per-row scrambling inits of the (NC*S*U,) flat
+    multi-cell batch (row order cell-major, then slot, then UE)."""
+    ci_rows = (rntis.to(torch.int64) << 15) + cell.n_id
+    return ci_rows[:, None, :].expand(nc, s, cell.nof_ue).reshape(-1)
+
+
+def _dl_code(payloads: torch.Tensor, rntis: torch.Tensor | None,
+             cell: CellConfig, rv: int = 0,
+             ci: torch.Tensor | None = None) -> torch.Tensor:
     """Coding front-end for a flat (B_tb, TBS) batch -> (B_tb, G/Qm) symbols:
     all codeblocks of all TBs go through segment -> encode -> rate match ->
-    scramble -> modulate as one batch."""
+    scramble -> modulate as one batch.  ``ci`` (B_tb,) replaces the per-row
+    scrambling inits derived from ``rntis`` (which may then be None)."""
     seg, rm = _plans(cell, rv)
     b_tb = payloads.shape[0]
     cbs = segmenter.segment_tb(payloads, seg)                 # (B_tb*C, K)
     cw = encoder.encode(cbs, seg.bg, seg.zc)                  # (B_tb*C, colsZc)
     bits = rate_match.rate_match(cw, rm).reshape(b_tb, -1)    # (B_tb, G)
-    bits = sequences.scramble_bits(
-        bits, _scrambling_inits(rntis, cell, b_tb // cell.nof_ue))
+    if ci is None:
+        ci = _scrambling_inits(rntis, cell, b_tb // cell.nof_ue)
+    bits = sequences.scramble_bits(bits, ci)
     return modulation.modulate(bits, cell.modulation)         # (B_tb, G/Qm)
 
 
@@ -272,13 +288,16 @@ def ul_slot(rx_samples, rntis, cell: CellConfig, rv: int = 0,
     return payload[0], tb_ok[0], nv[0], cfo[0], soft[0]
 
 
-def _ul_front(rx_samples: torch.Tensor | None, rntis: torch.Tensor,
-              cell: CellConfig, rx_grid: torch.Tensor | None = None):
+def _ul_front(rx_samples: torch.Tensor | None, rntis: torch.Tensor | None,
+              cell: CellConfig, rx_grid: torch.Tensor | None = None,
+              ci: torch.Tensor | None = None):
     """OFDM demod -> chest -> MMSE -> demap -> wire quantise -> descramble:
     (S, total) samples -> ((S, U, G) LLRs, (S, U) noise_var, (S, U) cfo).
     ``rx_grid`` (S, nsymb, nsubc) skips the OFDM demodulation when the
     caller already demodulated the slots (the full cell shares one grid
-    between PUSCH, PUCCH and SRS)."""
+    between PUSCH, PUCCH and SRS).  ``ci`` (S*U,) replaces the per-row
+    descrambling inits derived from ``rntis`` (multi-cell flattens the
+    carriers into the S dim)."""
     t = cell.timing
     u, w = cell.nof_ue, cell.ue_width_sc
     span = u * w
@@ -346,7 +365,9 @@ def _ul_front(rx_samples: torch.Tensor | None, rntis: torch.Tensor,
     # The reference's int8 wire domain (in float): pairs with the decoder's
     # 'wire_auto' schedule.
     llr = modulation.wire_quantize(llr, cell.modulation)
-    llr = sequences.scramble_llrs(llr, _scrambling_inits(rntis, cell, s))
+    if ci is None:
+        ci = _scrambling_inits(rntis, cell, s)
+    llr = sequences.scramble_llrs(llr, ci)
     return llr.reshape(s, u, -1), nv.reshape(s, u), cfo.reshape(s, u)
 
 
@@ -388,6 +409,51 @@ def _ul_back(llr: torch.Tensor, cell: CellConfig, rv: int = 0,
                              early_stop=early_stop, schedule="wire_auto")
     payload, tb_ok = segmenter.desegment_tb(hard, seg)
     return payload, tb_ok, new_soft
+
+
+# ================================================================= multi-cell
+
+def multi_cell_dl_slot_batch(payloads, rntis, cell: CellConfig, rv: int = 0,
+                             device: str | torch.device = "cuda") -> torch.Tensor:
+    """Multi-carrier DL: (NC, S, U, TBS) payloads + (NC, U) RNTIs ->
+    (NC, S, total) complex64 samples.
+
+    The carriers are independent cells of one configuration (the reference
+    runs one PHY instance per sector), so they flatten into the slot batch:
+    the coding front-end runs as one (NC*S*U) TB batch, grid + OFDM over
+    NC*S slots."""
+    _check_siso(cell)
+    dev = resolve_device(device)
+    payloads = torch.as_tensor(payloads, device=dev)
+    rntis = torch.as_tensor(rntis, device=dev)
+    nc, s, u, tbs = payloads.shape
+    syms = _dl_code(payloads.reshape(nc * s * u, tbs), None, cell, rv,
+                    ci=_cell_ci(rntis, cell, nc, s))
+    return _dl_grid_ofdm(syms.reshape(nc * s, u, -1), cell).reshape(nc, s, -1)
+
+
+def multi_cell_ul_slot_batch(rx_samples, rntis, cell: CellConfig, rv: int = 0,
+                             num_iters: int = decoder.DEFAULT_ITERS,
+                             device: str | torch.device = "cuda"):
+    """Multi-carrier UL: (NC, S, total) samples + (NC, U) RNTIs ->
+    (payload (NC, S, U, TBS), tb_ok, noise_var, cfo (NC, S, U),
+    soft (NC, S, U*C, n_cb)).  The carriers flatten into the slot batch:
+    one front-end over NC*S slots and one early-stop decode over all
+    NC*S*U*C codeblocks."""
+    _check_siso(cell)
+    dev = resolve_device(device)
+    rx_samples = torch.as_tensor(rx_samples, device=dev)
+    rntis = torch.as_tensor(rntis, device=dev)
+    nc, s, total = rx_samples.shape
+    u = cell.nof_ue
+    seg, _ = _plans(cell, rv)
+    llr, nv, cfo = _ul_front(rx_samples.reshape(nc * s, total), None, cell,
+                             ci=_cell_ci(rntis, cell, nc, s))
+    payload, tb_ok, soft = _ul_back(llr.reshape(nc * s * u, -1), cell, rv,
+                                    num_iters)
+    return (payload.reshape(nc, s, u, -1), tb_ok.reshape(nc, s, u),
+            nv.reshape(nc, s, u), cfo.reshape(nc, s, u),
+            soft.reshape(nc, s, u * seg.c, -1))
 
 
 # ================================================================ multi-layer

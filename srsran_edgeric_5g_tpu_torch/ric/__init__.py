@@ -1,9 +1,9 @@
 """EdgeRIC muApp layer: RIC-side messenger + per-TTI scheduling policies.
 
 Port of ``srsran_edgeric_5g_tpu/ric``: the messenger, the muApp policies,
-the monitor, the algorithm switch, and the serving half of the RL and
-NeurWIN policies (``rl.Policy``, ``neurwin.IndexNet`` and
-``WhittleIndexPolicy``).  pyzmq and protobuf are imported when a
+the monitor, the algorithm switch, and the RL and NeurWIN policies with
+their training loops (``rl.ppo_train`` on the ``rl.EdgeRicSimEnv`` twin,
+``neurwin.neurwin_train`` on ``neurwin.ArmEnv``).  pyzmq and protobuf are imported when a
 ``RicMessenger`` is built, not before.
 """
 

@@ -13,8 +13,11 @@ is dlopen'd from the system .so.5).
 from __future__ import annotations
 
 import ctypes
+import errno
+import os
 import pathlib
 import subprocess
+import time
 
 import numpy as np
 
@@ -121,13 +124,62 @@ class IqRing:
             self._h = None
 
 
+_BIND_TIMEOUT_S = 2.0
+
+
+def _listen_sockets(port: int) -> set[str] | None:
+    """The TCP sockets of this process listening on ``port`` (as
+    "socket:[inode]"); None where /proc does not say (not Linux)."""
+    try:
+        fds = os.listdir("/proc/self/fd")
+    except OSError:
+        return None
+    own = set()
+    for fd in fds:
+        try:
+            own.add(os.readlink(f"/proc/self/fd/{fd}"))
+        except OSError:          # closed since listed (listdir's own fd)
+            pass
+    found = set()
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            # local_address is HEXIP:HEXPORT, state 0A is LISTEN, then the inode.
+            cols = row.split()
+            sock = f"socket:[{cols[9]}]"
+            if int(cols[1].rsplit(":", 1)[1], 16) == port and cols[3] == "0A" \
+                    and sock in own:
+                found.add(sock)
+    return found
+
+
 class IqTxServer:
-    """ZMQ REP sample server (the gNB 'radio TX' end of the zmq loopback)."""
+    """ZMQ REP sample server (the gNB 'radio TX' end of the zmq loopback).
+
+    The native server binds in its own thread and does not report a failed
+    bind; for a ``tcp://host:port`` address the constructor waits (up to
+    ``_BIND_TIMEOUT_S``) until a new socket of this process listens on the
+    port, and raises OSError(EADDRINUSE) if none does, instead of serving
+    nothing while the client reads another server."""
 
     def __init__(self, address: str, ring_capacity: int = 1 << 22,
                  chunk: int = 11520):
         _require_zmq()
+        port = int(address.rsplit(":", 1)[1]) if address.startswith("tcp://") else None
+        before = None if port is None else _listen_sockets(port)
         self._h = lib().iq_tx_server_start(address.encode(), ring_capacity, chunk)
+        if before is None:
+            return
+        deadline = time.monotonic() + _BIND_TIMEOUT_S
+        while not _listen_sockets(port) - before:
+            if time.monotonic() > deadline:
+                self.stop()
+                raise OSError(errno.EADDRINUSE, f"the IQ bridge could not bind {address}")
+            time.sleep(0.01)
 
     def push(self, samples: np.ndarray) -> int:
         s = _as_cf32(samples)

@@ -107,13 +107,14 @@ def test_pucch_format2_decode(k):
     cj, ct = jpucch.Pucch2Config(**kw), tpucch.Pucch2Config(**kw)
     rng = np.random.default_rng(k)
     bits = rng.integers(0, 2, (1, k), dtype=np.int8)
-    grid = np_(jpucch.format2_process(jnp.asarray(bits), cj, 14, NSUBC))
+    grid = np_(jax.jit(lambda b: jpucch.format2_process(b, cj, 14, NSUBC))(
+        jnp.asarray(bits)))
     np.testing.assert_allclose(tpucch.format2_process(torch.as_tensor(bits), ct, 14,
                                                       NSUBC).numpy(),
                                grid, rtol=0, atol=GRID_ATOL)
     np.testing.assert_array_equal(
         tpucch.format2_uci_encode(torch.as_tensor(bits), ct).numpy(),
-        np_(jpucch.format2_uci_encode(jnp.asarray(bits), cj)))
+        np_(jax.jit(lambda b: jpucch.format2_uci_encode(b, cj))(jnp.asarray(bits))))
     rx = (grid * np.complex64(0.9 * np.exp(0.4j))
           + cnoise(rng, grid.shape, 0.05) * (np.abs(grid) > 0))
     oj, okj = jax.jit(lambda g: jpucch.format2_decode(g, cj))(jnp.asarray(rx))
@@ -151,16 +152,16 @@ def test_prach_generate_modulate_detect(case):
     assert dataclasses.asdict(info_t) == dataclasses.asdict(info_j)
     rng = np.random.default_rng(len(case))
     for idx in indices:
-        pre = np_(jprach.generate(cj, idx))
+        pre = np_(jax.jit(lambda: jprach.generate(cj, idx))())
         np.testing.assert_allclose(tprach.generate(ct, idx, device="cpu").numpy(),
                                    pre, rtol=0, atol=1e-5 * np.abs(pre).max())
-        td = np_(jprach.ofdm_modulate_prach(jnp.asarray(pre), info_j))
+        td = np_(jax.jit(lambda p: jprach.ofdm_modulate_prach(p, info_j))(jnp.asarray(pre)))
         np.testing.assert_allclose(
             tprach.ofdm_modulate_prach(torch.as_tensor(pre), info_t).numpy(),
             td, rtol=0, atol=1e-5)
         rx = np.roll(td, 3) + cnoise(rng, td.shape, 0.3)
-        fj = jprach.ofdm_demodulate_prach(jnp.asarray(rx), info_j)
-        mj, delj, detj = jax.jit(lambda f: dataclasses.astuple(jprach.detect(f, cj)))(fj)
+        mj, delj, detj = jax.jit(lambda x: dataclasses.astuple(jprach.detect(
+            jprach.ofdm_demodulate_prach(x, info_j), cj)))(jnp.asarray(rx))
         dt = tprach.detect(tprach.ofdm_demodulate_prach(torch.as_tensor(rx), info_t), ct)
         np.testing.assert_array_equal(dt.detected.numpy(), np_(detj))
         np.testing.assert_array_equal(dt.delays.numpy(), np_(delj))
@@ -198,11 +199,11 @@ def test_srs_and_csi_rs_estimate():
                   comb=comb, comb_offset=1, cyclic_shift=cs)
         sj, st = jcsi.SrsConfig(**kw), tcsi.SrsConfig(**kw)
         g0 = np.zeros((14, NSUBC), np.complex64)
-        gj = np_(jcsi.map_srs(jnp.asarray(g0), sj, amplitude=0.7))
+        gj = np_(jax.jit(lambda g: jcsi.map_srs(g, sj, amplitude=0.7))(jnp.asarray(g0)))
         gt = tcsi.map_srs(torch.as_tensor(g0), st, amplitude=0.7)
         np.testing.assert_allclose(gt.numpy(), gj, rtol=0, atol=GRID_ATOL)
         rx = gj * np.complex64(np.exp(0.8j)) + cnoise(rng, gj.shape, 0.05)
-        hj, snr_j = jcsi.srs_estimate(jnp.asarray(rx), sj)
+        hj, snr_j = jax.jit(lambda x: jcsi.srs_estimate(x, sj))(jnp.asarray(rx))
         ht, snr_t = tcsi.srs_estimate(torch.as_tensor(rx), st)
         np.testing.assert_allclose(ht.numpy(), np_(hj), rtol=0, atol=1e-5)
         np.testing.assert_allclose(float(snr_t), float(snr_j), rtol=1e-4)
@@ -211,13 +212,14 @@ def test_srs_and_csi_rs_estimate():
                   density=density, comb_offset=2)
         cj, ct = jcsi.CsiRsConfig(**kw), tcsi.CsiRsConfig(**kw)
         g0 = np.zeros((14, NSUBC), np.complex64)
-        gj = np_(jcsi.map_csi_rs(jnp.asarray(g0), cj))
+        gj = np_(jax.jit(lambda g: jcsi.map_csi_rs(g, cj))(jnp.asarray(g0)))
         np.testing.assert_allclose(tcsi.map_csi_rs(torch.as_tensor(g0), ct).numpy(),
                                    gj, rtol=0, atol=GRID_ATOL)
         rx = gj * np.complex64(0.5 - 0.2j) + cnoise(rng, gj.shape, 0.05)
         np.testing.assert_allclose(
             tcsi.csi_rs_estimate(torch.as_tensor(rx), ct).numpy(),
-            np_(jcsi.csi_rs_estimate(jnp.asarray(rx), cj)), rtol=0, atol=1e-5)
+            np_(jax.jit(lambda x: jcsi.csi_rs_estimate(x, cj))(jnp.asarray(rx))),
+            rtol=0, atol=1e-5)
 
 
 # ------------------------------------------------------------------ PDCCH
@@ -276,8 +278,10 @@ def test_ssb_pbch_encode_process_decode(kw):
     rng = np.random.default_rng(kw["pci"])
     mib = rng.integers(0, 2, (1, 24), dtype=np.int8)
     np.testing.assert_array_equal(tssb.pbch_encode(torch.as_tensor(mib), ct).numpy(),
-                                  np_(jssb.pbch_encode(jnp.asarray(mib), cj)))
-    gj = np_(jssb.process(jnp.asarray(mib), cj, 14, NSUBC, amplitude=0.8))
+                                  np_(jax.jit(lambda m: jssb.pbch_encode(m, cj))(
+                                      jnp.asarray(mib))))
+    gj = np_(jax.jit(lambda m: jssb.process(m, cj, 14, NSUBC, amplitude=0.8))(
+        jnp.asarray(mib)))
     gt = tssb.process(torch.as_tensor(mib), ct, 14, NSUBC, amplitude=0.8)
     np.testing.assert_allclose(gt.numpy(), gj, rtol=0, atol=GRID_ATOL)
     rx = gj + cnoise(rng, gj.shape, 0.1) * (np.abs(gj) > 0)
@@ -318,14 +322,15 @@ def test_polar_sc_decode(name):
     cj, ct = _construct(jcode, k, e, dl, n_pc), _construct(tcode, k, e, dl, n_pc)
     rng = np.random.default_rng(k + e)
     msgs = rng.integers(0, 2, (8, k), dtype=np.int8)
-    tx = np_(jrm.rate_match(jenc.encode(jnp.asarray(msgs), cj), cj))
+    tx = np_(jax.jit(lambda m: jrm.rate_match(jenc.encode(m, cj), cj))(jnp.asarray(msgs)))
     llr = ((1.0 - 2.0 * tx) * 4.0 + rng.normal(size=tx.shape) * 2.0).astype(np.float32)
-    mother = np_(jrm.rate_dematch(jnp.asarray(llr), cj))
+    dematch = jax.jit(lambda x: jrm.rate_dematch(x, cj))
+    mother = np_(dematch(jnp.asarray(llr)))
     out_j = np_(jax.jit(lambda x: jdec.decode(x, cj))(jnp.asarray(mother)))
     out_t = tdec.decode(torch.as_tensor(mother), ct).numpy()
     np.testing.assert_array_equal(out_t, out_j)
     # Noiseless: the message itself.
-    clean = np_(jrm.rate_dematch(jnp.asarray((1.0 - 2.0 * tx) * 8.0), cj))
+    clean = np_(dematch(jnp.asarray((1.0 - 2.0 * tx) * 8.0)))
     np.testing.assert_array_equal(tdec.decode(torch.as_tensor(clean), ct).numpy(), msgs)
 
 

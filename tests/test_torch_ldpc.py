@@ -8,6 +8,7 @@ float32); the decoders repeat the reference's float32 operation sequence
 
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +27,11 @@ from srsran_edgeric_5g_tpu_torch.ops.ldpc import segmenter as tseg
 
 # Six test workers share the host with the JAX tests: two intra-op threads.
 torch.set_num_threads(2)
+# The reference's encoder and decoder, jitted once for the file: op by op,
+# every primitive compiles again at every shape.
+j_encode = jax.jit(jenc.encode, static_argnums=(1, 2), static_argnames="impl")
+j_decode = jax.jit(jdec.decode, static_argnums=(1, 2),
+                   static_argnames=("num_iters", "schedule", "early_stop"))
 
 
 def _np(x):
@@ -66,7 +72,7 @@ def test_encode(bg, zc):
     msgs = rng.integers(0, 2, (4, g.k), dtype=np.int8)
     np.testing.assert_array_equal(
         tenc.encode(torch.as_tensor(msgs), bg, zc).numpy(),
-        np.asarray(jenc.encode(jnp.asarray(msgs), bg, zc, impl="gather")))
+        np.asarray(j_encode(jnp.asarray(msgs), bg, zc, impl="gather")))
 
 
 @pytest.mark.parametrize("bg,zc,e,qm,k_prime,n_cb", [
@@ -124,12 +130,55 @@ def test_decode_schedules(bg, zc, schedule, early_stop):
     _, llr, wire = _awgn_llrs(bg, zc, 3, snr_db=0.8, seed=bg * 10 + zc)
     x = wire if schedule == "layered_wire" else llr
     iters = 2 + (zc % 3)
-    hj, okj = jdec.decode(jnp.asarray(x), bg, zc, num_iters=iters,
+    hj, okj = j_decode(jnp.asarray(x), bg, zc, num_iters=iters,
                           schedule=schedule, early_stop=early_stop)
     ht, okt = tdec.decode(torch.as_tensor(x), bg, zc, num_iters=iters,
                           schedule=schedule, early_stop=early_stop)
     np.testing.assert_array_equal(ht.numpy(), np.asarray(hj))
     np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+
+
+@pytest.mark.parametrize("schedule,bg,zc,snr_db,early_stop,wire_in", [
+    ("flooding", 1, 64, 1.5, False, False), ("flooding", 2, 40, 0.8, False, False),
+    ("layered_rolls_i8", 1, 64, 0.8, False, False),
+    ("layered_rolls_i8", 2, 40, -0.3, True, True)])
+def test_decode_flooding_and_i8(schedule, bg, zc, snr_db, early_stop, wire_in):
+    """The schedules with arithmetic of their own against the reference's:
+    hard bits and ok bit-exact ('flooding' sums floats, in the same order
+    on the CPU; 'layered_rolls_i8' is integer), from float LLRs (quantised
+    inside) and from int8 wire LLRs.  The int8 cases sit where part of the
+    batch fails, so the early stop runs its full count."""
+    _, llr, wire = _awgn_llrs(bg, zc, 4, snr_db=snr_db, seed=bg * 7 + zc)
+    x = wire.astype(np.int8) if wire_in else llr
+    iters = 3 if early_stop else 4
+    hj, okj = j_decode(jnp.asarray(x), bg, zc, num_iters=iters,
+                          schedule=schedule, early_stop=early_stop)
+    ht, okt = tdec.decode(torch.as_tensor(x), bg, zc, num_iters=iters,
+                          schedule=schedule, early_stop=early_stop)
+    assert ht.dtype == torch.int8 and ht.shape == hj.shape
+    np.testing.assert_array_equal(ht.numpy(), np.asarray(hj))
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    assert schedule == "flooding" or 0 < int(okt.sum()) < 4
+
+
+@pytest.mark.parametrize("name,same_as", sorted(tdec._TPU_FORMS.items()))
+def test_tpu_formulations_refused(name, same_as):
+    """The reference's TPU formulations raise, naming the port's schedule
+    that computes the same decode."""
+    with pytest.raises(NotImplementedError, match=repr(same_as)):
+        tdec.decode(torch.zeros((1, 68 * 64)), 1, 64, schedule=name)
+
+
+@pytest.mark.parametrize("impl", ["auto", "gather", "rolls"])
+def test_encode_impl(impl):
+    """Every impl name of the reference gives its codeword; others raise."""
+    g = get_graph(2, 40)
+    msgs = np.random.default_rng(9).integers(0, 2, (3, g.k), dtype=np.int8)
+    want = np.asarray(j_encode(jnp.asarray(msgs), 2, 40, impl=impl))
+    got = tenc.encode(torch.as_tensor(msgs), 2, 40, impl=impl)
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError):
+        tenc.encode(torch.as_tensor(msgs), 2, 40, impl="nope")
 
 
 @pytest.mark.parametrize("scale_floor", [False, True])
@@ -158,7 +207,7 @@ def test_decode_with_ties():
     x[:, :2 * zc] = 0.0
     x[:, 2 * zc::7] *= -1.0                          # flipped, equally confident
     for schedule in ("layered", "layered_wire"):
-        hj, okj = jdec.decode(jnp.asarray(x), bg, zc, num_iters=3,
+        hj, okj = j_decode(jnp.asarray(x), bg, zc, num_iters=3,
                               schedule=schedule, early_stop=False)
         ht, okt = tdec.decode(torch.as_tensor(x), bg, zc, num_iters=3,
                               schedule=schedule, early_stop=False)
@@ -201,8 +250,8 @@ def test_decode_dispatch():
     for u, v in zip(tdec.decode(torch.as_tensor(llr), bg, zc),
                     tdec.decode(torch.as_tensor(llr), bg, zc, schedule="layered")):
         assert torch.equal(u, v)
-    for name in ("flooding", "layered_rolls_wire", "layered_rolls_i8"):
-        with pytest.raises(NotImplementedError):
+    for name in ("layered_rolls_wire",):
+        with pytest.raises(NotImplementedError, match="'layered_wire'"):
             tdec.decode(torch.as_tensor(llr), bg, zc, schedule=name)
     with pytest.raises(ValueError):
         tdec.decode(torch.as_tensor(llr), bg, zc, schedule="nope")

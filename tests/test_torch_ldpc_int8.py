@@ -3,8 +3,8 @@
 On the CPU its plain twin ``decode_int8_plain`` is held bit for bit (hard
 bits and ``ok``) to the JAX package's ``decode_pallas_int8`` run in the
 Pallas interpreter: BG2, Zc=64, B=16, 3 sweeps, b_tile 8 and 16, early stop
-off and on.  The interpreter runs once per test run in the child process of
-tests/test_torch_ldpc_kernel.py (``pallas_reference``), beside K1's case.
+off and on.  The interpreter runs once per test run in the child processes
+of tests/test_torch_ldpc_kernel.py (``pallas_reference``), beside K1's case.
 Codeblocks 0-7 of the input converge sooner than 8-15, so with b_tile 8 the
 two tiles stop at different sweeps.
 

@@ -94,12 +94,12 @@ def test_equalize_mmse_lxn_and_weights(n_l, p):
     h = _channel(rng, p, n_l, 3, 40)
     y = _cplx(rng, p, 3, 40)
     nv = rng.uniform(0.02, 0.1, size=(p, 1, 1)).astype(np.float32)
-    want = jeq.equalize_mmse_lxn(jnp.asarray(y), jnp.asarray(h), jnp.asarray(nv))
+    want = jax.jit(jeq.equalize_mmse_lxn)(jnp.asarray(y), jnp.asarray(h), jnp.asarray(nv))
     got = teq.equalize_mmse_lxn(_t(y), _t(h), _t(nv))
     assert got[0].dtype == torch.complex64 and got[1].dtype == torch.float32
     for g, w in zip(got, want):
         _close(g, w)
-    want = jeq.mmse_weights_lxn(jnp.asarray(h), jnp.asarray(nv))
+    want = jax.jit(jeq.mmse_weights_lxn)(jnp.asarray(h), jnp.asarray(nv))
     got = teq.mmse_weights_lxn(_t(h), _t(nv))
     for g, w in zip(got, want):
         _close(g, w)
@@ -112,7 +112,8 @@ def test_binv_and_timeinv(n_l, p):
     rng = np.random.default_rng(100 * n_l + p)
     h = _channel(rng, p, n_l, 3, 24)                   # (P, L, B, w)
     hw = h / rng.uniform(0.02, 0.1, size=(p, 1, 1, 1)).astype(np.float32)
-    binv_j, g_j = jeq._binv_scalars(jnp.asarray(h), jnp.asarray(hw), n_l)
+    binv_j, g_j = jax.jit(jeq._binv_scalars, static_argnums=2)(
+        jnp.asarray(h), jnp.asarray(hw), n_l)
     binv_t, g_t = teq._binv_scalars(_t(h), _t(hw), n_l)
     assert sorted(binv_t) == sorted(binv_j)
     for key in binv_j:
@@ -122,7 +123,8 @@ def test_binv_and_timeinv(n_l, p):
 
     y = _cplx(rng, p, 3, 5, 24)                        # (P, B, n, w)
     nv = rng.uniform(0.02, 0.1, size=(p, 3, 1)).astype(np.float32)
-    want = jeq.mmse_equalize_timeinv(jnp.asarray(y), jnp.asarray(h), jnp.asarray(nv))
+    want = jax.jit(jeq.mmse_equalize_timeinv)(jnp.asarray(y), jnp.asarray(h),
+                                              jnp.asarray(nv))
     got = teq.mmse_equalize_timeinv(_t(y), _t(h), _t(nv))
     for g, w in zip(got, want):
         _close(g, w)
@@ -130,8 +132,8 @@ def test_binv_and_timeinv(n_l, p):
     hg = _channel(rng, p, n_l, 2, 3, 24).transpose(2, 0, 1, 3, 4)   # (S, P, L, U, w)
     yg = _cplx(rng, 2, p, 5, 3, 24)                                  # (S, P, n, U, w)
     nvg = rng.uniform(0.02, 0.1, size=(2, p, 3, 1)).astype(np.float32)
-    want = jeq.mmse_equalize_timeinv_grid(jnp.asarray(yg), jnp.asarray(hg),
-                                          jnp.asarray(nvg))
+    want = jax.jit(jeq.mmse_equalize_timeinv_grid)(jnp.asarray(yg), jnp.asarray(hg),
+                                                   jnp.asarray(nvg))
     got = teq.mmse_equalize_timeinv_grid(_t(yg), _t(hg), _t(nvg))
     assert got[0].shape == (2, 5, 3, 24, n_l) and got[1].shape == (2, 3, 24, n_l)
     for g, w in zip(got, want):
@@ -145,7 +147,7 @@ def test_inv_small(n_l):
     m = _cplx(rng, 7, 5, n_l, n_l)
     b = (np.einsum("...ji,...jk->...ik", m.conj(), m)
          + np.eye(n_l, dtype=np.complex64)).astype(np.complex64)
-    want = np.asarray(jeq._inv_small(jnp.asarray(b)))
+    want = np.asarray(jax.jit(jeq._inv_small)(jnp.asarray(b)))
     got = teq._inv_small(_t(b)).numpy()
     _close(got, want)
     _close(got @ b, np.broadcast_to(np.eye(n_l), b.shape), rtol=1e-4)
@@ -157,13 +159,13 @@ def test_equalize_mmse_2xn_and_zf(p):
     h = _channel(rng, p, 2, 4, 30)
     y = _cplx(rng, p, 4, 30)
     nv = rng.uniform(0.02, 0.1, size=(p, 1, 1)).astype(np.float32)
-    want = jeq.equalize_mmse_2xn(jnp.asarray(y), jnp.asarray(h), jnp.asarray(nv))
+    want = jax.jit(jeq.equalize_mmse_2xn)(jnp.asarray(y), jnp.asarray(h), jnp.asarray(nv))
     got = teq.equalize_mmse_2xn(_t(y), _t(h), _t(nv))
     for g, w in zip(got, want):
         _close(g, w)
     h1 = h[:, 0].copy()
     h1[0, 0, :3] = 0                                   # a port excluded there
-    want = jeq.equalize_zf_1xn(jnp.asarray(y), jnp.asarray(h1), jnp.asarray(nv))
+    want = jax.jit(jeq.equalize_zf_1xn)(jnp.asarray(y), jnp.asarray(h1), jnp.asarray(nv))
     got = teq.equalize_zf_1xn(_t(y), _t(h1), _t(nv))
     for g, w in zip(got, want):
         _close(g, w)
@@ -201,9 +203,20 @@ def test_slot_batch_mimo(n_l):
     assert np.abs(td_t.numpy() - td_j).max() <= 1e-5 * np.abs(td_j).max()
 
     rx = _awgn(np.einsum("pl,slt->spt", _mix_matrix(rng, n_l), td_j), 25.0, rng)
-    ul_j = jax.jit(lambda x, sb, nd: jsp.ul_slot_batch_mimo(
-        x, jnp.asarray(rn), jc, soft_buffer=sb, new_data=nd))
-    res_j = [np.asarray(a) for a in ul_j(jnp.asarray(rx), None, None)]
+
+    @jax.jit
+    def ul_j(x, sb, nd):
+        """The reference's receiver and its wire LLRs, one program for both
+        receptions: the first one through a zero carry that new_data = 1
+        clears, which is the receiver without a carry."""
+        return (jsp.ul_slot_batch_mimo(x, jnp.asarray(rn), jc, soft_buffer=sb,
+                                       new_data=nd),
+                jsp._ul_front_mimo(x, jnp.asarray(rn), jc)[0])
+
+    seg_j, rm_j = jsp._plans(jc)
+    zero = jnp.zeros((s, 2 * seg_j.c, rm_j.n_cb), jnp.int8)
+    res_j, llr_j = ul_j(jnp.asarray(rx), zero, jnp.ones((s, 2), jnp.float32))
+    res_j, llr_j = [np.asarray(a) for a in res_j], np.asarray(llr_j)
     res_t = [a.numpy() for a in tsp.ul_slot_batch_mimo(rx, rn.astype(np.int64), tc,
                                                        device="cpu")]
     assert res_j[1].all() and (res_j[0] == pay).all()
@@ -211,8 +224,6 @@ def test_slot_batch_mimo(n_l):
     np.testing.assert_array_equal(res_t[1], res_j[1])
     _close(res_t[2], res_j[2])
     np.testing.assert_allclose(res_t[3], res_j[3], atol=1e-2)
-    llr_j = np.asarray(jax.jit(lambda x: jsp._ul_front_mimo(
-        x, jnp.asarray(rn), jc)[0])(jnp.asarray(rx)))
     llr_t = tsp._ul_front_mimo(_t(rx), _t(rn.astype(np.int64)), tc)[0].numpy()
     llr_diff = int((llr_t != llr_j).sum())
     assert np.abs(llr_t - llr_j).max(initial=0) <= 1
@@ -222,7 +233,7 @@ def test_slot_batch_mimo(n_l):
     # Chase combine into the reference's carry (new_data 0).
     nd = np.zeros((s, 2), np.float32)
     res2_j = [np.asarray(a) for a in ul_j(jnp.asarray(rx), jnp.asarray(res_j[4]),
-                                          jnp.asarray(nd))]
+                                          jnp.asarray(nd))[0]]
     res2_t = [a.numpy() for a in tsp.ul_slot_batch_mimo(
         rx, rn.astype(np.int64), tc, soft_buffer=res_j[4], new_data=nd,
         device="cpu")]
@@ -266,16 +277,26 @@ def cells(request):
     ue_j = np.asarray(jax.jit(lambda *a: jfc.ue_ul_slot_batch_mimo(
         *a, jc, s, prach_amplitude=0.02))(ins["pay_u"], ins["ack"], ins["csi"]))
     rx = _awgn(np.einsum("pl,slt->spt", _mix_matrix(rng, n_l), ue_j), 25.0, rng)
-    ul = jax.jit(lambda x, soft, nd: jfc.gnb_ul_slot_batch_mimo(
-        x, jc, s, soft_in=soft, new_data=nd))
-    res_j = {k: np.asarray(v) for k, v in ul(jnp.asarray(rx), None, None).items()}
+
+
+    @jax.jit
+    def ul(x, soft, nd):
+        """The reference's receiver and its wire LLRs, one program for both
+        receptions: the first one through a zero carry that new_data = 1
+        clears, which is the receiver without a carry."""
+        return (jfc.gnb_ul_slot_batch_mimo(x, jc, s, soft_in=soft, new_data=nd),
+                jsp._ul_front_mimo(x, jc.rntis(), jc.ul_cell())[0])
+
+    seg, rm = jsp._plans(jc.ul_cell())
+    zero = jnp.zeros((s, u * seg.c, rm.n_cb), jnp.int8)
+    res_j, llr_j = ul(jnp.asarray(rx), zero, jnp.ones((s, u), jnp.float32))
+    res_j = {k: np.asarray(v) for k, v in res_j.items()}
     nd = np.zeros((s, u), np.float32)
     res2_j = {k: np.asarray(v) for k, v in
-              ul(jnp.asarray(rx), jnp.asarray(res_j["soft"]), jnp.asarray(nd)).items()}
+              ul(jnp.asarray(rx), jnp.asarray(res_j["soft"]), jnp.asarray(nd))[0].items()}
     res_t = {k: v.numpy() for k, v in
              tfc.gnb_ul_slot_batch_mimo(rx, tc, s, device="cpu").items()}
-    llr = [np.asarray(jax.jit(lambda x: jsp._ul_front_mimo(
-               x, jc.rntis(), jc.ul_cell())[0])(jnp.asarray(rx))),
+    llr = [np.asarray(llr_j),
            tsp._ul_front_mimo(_t(rx), _t(tc.rntis()), tc.ul_cell())[0].numpy()]
     return dict(jc=jc, tc=tc, ins=ins, td_j=td_j, ue_j=ue_j, rx=rx, nd=nd,
                 res_j=res_j, res2_j=res2_j, res_t=res_t,
@@ -396,16 +417,21 @@ def test_4x4_wire_decoder_floor_is_the_references():
 
     res_t = [x.numpy() for x in tsp.ul_slot_batch_mimo(rx, rn.astype(np.int64), tc,
                                                        device="cpu")]
-    front = jax.jit(lambda x: jsp._ul_front_mimo(x, jnp.asarray(rn), jc)[0])
-    llr = front(jnp.asarray(rx))
     seg, rm = jsp._plans(jc)
-    full = jrm.rate_dematch(llr.reshape(-1, rm.e), rm, None, dtype=jnp.bfloat16,
-                            saturate=True)
-    _, ok_wire = jdec.decode(full.astype(jnp.float32), seg.bg, seg.zc,
-                             schedule="layered_wire")
-    hard, ok_f32 = jdec.decode(full.astype(jnp.float32) / 6.0, seg.bg, seg.zc,
-                               schedule="layered")
-    pay_f32, tb_f32 = jseg.desegment_tb(hard, seg)
+
+    @jax.jit
+    def reference(x):
+        """The reference's front, dematch, wire and f32 decodes: one program."""
+        llr = jsp._ul_front_mimo(x, jnp.asarray(rn), jc)[0]
+        full = jrm.rate_dematch(llr.reshape(-1, rm.e), rm, None, dtype=jnp.bfloat16,
+                                saturate=True)
+        _, ok_wire = jdec.decode(full.astype(jnp.float32), seg.bg, seg.zc,
+                                 schedule="layered_wire")
+        hard, ok_f32 = jdec.decode(full.astype(jnp.float32) / 6.0, seg.bg, seg.zc,
+                                   schedule="layered")
+        return (ok_wire, ok_f32) + tuple(jseg.desegment_tb(hard, seg))
+
+    ok_wire, ok_f32, pay_f32, tb_f32 = reference(jnp.asarray(rx))
     ok_wire = np.asarray(ok_wire).reshape(8, seg.c).all(axis=1).reshape(2, 4)
     assert (~res_t[1]).sum() == 1 and not res_t[1][1, 3]
     np.testing.assert_array_equal(res_t[1], ok_wire)

@@ -10,9 +10,11 @@ exact.
 """
 
 import dataclasses
+import errno
 import json
 import os
 import pathlib
+import random
 import socket
 import subprocess
 import sys
@@ -245,10 +247,31 @@ def test_slot_loop_in_process_radio():
     assert sorted(sent) == list(range(6))
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+# The app takes a TCP --port, as the JAX app does.  Its port is drawn from
+# below the kernel's ephemeral range (32768-60999 here), which bind(0)
+# probes and outgoing connections take from, and away from the JAX app
+# tests' fixed 47821-47829; a port that is taken all the same makes the
+# bridge raise EADDRINUSE, and the test draws another, at most APP_TRIES
+# times.
+APP_PORTS = (20000, 32000)
+APP_TRIES = 3
+# The app's child runs 3 slots in seconds (6.2 s under the whole suite).
+APP_TIMEOUT_S = 90
+
+
+def _app_port() -> int:
+    return random.SystemRandom().randrange(*APP_PORTS)
+
+
+def test_bridge_reports_a_failed_bind():
+    """A port another socket listens on: the server raises EADDRINUSE
+    instead of serving nothing."""
+    with socket.socket() as held:
+        held.bind(("127.0.0.1", 0))
+        held.listen()
+        with pytest.raises(OSError) as exc:
+            tiq.IqTxServer(f"tcp://127.0.0.1:{held.getsockname()[1]}")
+    assert exc.value.errno == errno.EADDRINUSE
 
 
 def test_loopback_app_over_the_bridge(tmp_path):
@@ -270,10 +293,18 @@ def test_loopback_app_over_the_bridge(tmp_path):
             " ('jax', 'srsran_edgeric_5g_tpu'))\n"
             "print('LEAKED', leaked)\n"
             "sys.exit(rc)\n")
-    out = subprocess.run(
-        [sys.executable, "-c", code, str(cfg), "--slots", "3", "--snr", "25",
-         "--port", str(_free_port()), "--trace", str(trace), "--device", "cpu"],
-        capture_output=True, text=True, timeout=300, env=env, cwd=str(REPO))
+    for _ in range(APP_TRIES):
+        try:
+            out = subprocess.run(
+                [sys.executable, "-c", code, str(cfg), "--slots", "3", "--snr", "25",
+                 "--port", str(_app_port()), "--trace", str(trace), "--device", "cpu"],
+                capture_output=True, text=True, timeout=APP_TIMEOUT_S, env=env,
+                cwd=str(REPO))
+        except subprocess.TimeoutExpired as e:
+            pytest.fail(f"the app ran over {APP_TIMEOUT_S} s and was killed:\n"
+                        f"{e.stdout}\n{e.stderr}")
+        if "could not bind" not in out.stderr:
+            break
     assert out.returncode == 0, out.stdout + out.stderr
     assert "TB success 6/6" in out.stdout, out.stdout
     assert "throughput" in out.stdout

@@ -18,11 +18,12 @@ counts are compared exactly.
 
 import contextlib
 import dataclasses
+import errno
 import functools
 import importlib.util
 import os
 import pathlib
-import socket
+import random
 import subprocess
 import sys
 import threading
@@ -42,10 +43,15 @@ torch.set_num_threads(2)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+# The app's --port (TCP, as the JAX app's) is drawn from below the kernel's
+# ephemeral range, where no bind(0) probe or outgoing connection lands, and
+# away from the JAX app tests' 47821-47829; a taken port makes the bridge
+# raise EADDRINUSE and the test draws another (tests/test_torch_runtime.py).
+APP_PORTS = (20000, 32000)
+APP_TRIES = 3
+# The blocked-imports child runs two scheduled slots (14.5-25.6 s under the
+# whole suite).
+CHILD_TIMEOUT_S = 150
 
 
 class NumpyRadio:
@@ -144,10 +150,11 @@ def _reference_app():
     return mod
 
 
-def test_whole_run_equals_the_reference_app(capsys):
+def test_whole_run_equals_the_reference_app(capsys, tmp_path):
     """The JAX run_scheduled over the native bridge and the port's over its
     own, --sched pf, 4 slots, each from default_rng(0): the same grants in
-    every slot, the same CRC outcome per TB, the same bytes served."""
+    every slot, the same CRC outcome per TB, the same bytes served.  The
+    bridges run over ipc:// endpoints under tmp_path."""
     from srsran_edgeric_5g_tpu import config as jcfg
     from srsran_edgeric_5g_tpu.mac import scheduler as jmac
     from srsran_edgeric_5g_tpu.runtime import (IqRxClient, IqTxServer, RadioEventNotifier
@@ -159,7 +166,7 @@ def test_whole_run_equals_the_reference_app(capsys):
 
     cfg = jcfg.PhyConfig()
     cell = cfg.cell_config()
-    addr = f"tcp://127.0.0.1:{_free_port()}"
+    addr = f"ipc://{tmp_path}/iq-reference"
     tx = IqTxServer(addr, chunk=cell.timing.cp.total)
     rx = IqRxClient(addr, chunk=cell.timing.cp.total)
     try:
@@ -175,7 +182,7 @@ def test_whole_run_equals_the_reference_app(capsys):
 
     cfg_t = tcfg.PhyConfig()
     cell_t = cfg_t.cell_config()
-    addr = f"tcp://127.0.0.1:{_free_port()}"
+    addr = f"ipc://{tmp_path}/iq-port"
     ttx, trx = TTx(addr, chunk=cell_t.timing.cp.total), TRx(addr, chunk=cell_t.timing.cp.total)
     rng = np.random.default_rng(0)
 
@@ -230,8 +237,15 @@ def test_edgeric_in_the_default_loop(tmp_path, monkeypatch, capsys):
     t = threading.Thread(target=ric, daemon=True)
     t.start()
     try:
-        code = loopback_app.main(["--edgeric", "--slots", "8", "--device", "cpu",
-                                  "--port", str(_free_port())])
+        for attempt in range(APP_TRIES):
+            try:
+                code = loopback_app.main(["--edgeric", "--slots", "8", "--device", "cpu",
+                                          "--port", str(random.SystemRandom().randrange(
+                                              *APP_PORTS))])
+                break
+            except OSError as e:
+                if e.errno != errno.EADDRINUSE or attempt == APP_TRIES - 1:
+                    raise
     finally:
         stop.set()
         t.join(5)
@@ -290,7 +304,11 @@ leaked = sorted(m for m in sys.modules
 print("LEAKED", leaked)
 """
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=300, env=env, cwd=str(REPO))
+    try:
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             timeout=CHILD_TIMEOUT_S, env=env, cwd=str(REPO))
+    except subprocess.TimeoutExpired as e:
+        pytest.fail(f"the child ran over {CHILD_TIMEOUT_S} s and was killed:\n"
+                    f"{e.stdout}\n{e.stderr}")
     assert out.returncode == 0, out.stdout + out.stderr
     assert "LEAKED []" in out.stdout, out.stdout

@@ -52,16 +52,23 @@ def loopback():
     nv = float(np.mean(np.abs(td_j) ** 2)) * 10 ** (-20 / 10)
     noise = (rng.normal(size=td_j.shape) + 1j * rng.normal(size=td_j.shape))
     rx = (td_j + noise * np.sqrt(nv / 2)).astype(np.complex64)
-    ul_j = jax.jit(lambda x: jsp.ul_slot_batch(x, jnp.asarray(RNTIS), jc))
-    res_j = [np.array(a) for a in ul_j(jnp.asarray(rx))]
+
+    @jax.jit
+    def ul_j(x, sb):
+        """The reference's receiver and its wire LLRs in one program, for
+        every reception of this file: a first one combines into a zero
+        carry, which is the receiver without a carry."""
+        return (jsp.ul_slot_batch(x, jnp.asarray(RNTIS), jc, soft_buffer=sb),
+                jsp._ul_front(x, jnp.asarray(RNTIS), jc)[0])
+
+    seg, rm = jsp._plans(jc)
+    res_j, llr_j = ul_j(jnp.asarray(rx), jnp.zeros((S, 4 * seg.c, rm.n_cb), jnp.int8))
     res_t = tsp.ul_slot_batch(rx, RNTIS.astype(np.int64), tc, device="cpu")
-    llr_j = np.array(jax.jit(lambda x: jsp._ul_front(x, jnp.asarray(RNTIS), jc)[0])(
-        jnp.asarray(rx)))
     llr_t = tsp._ul_front(torch.as_tensor(rx), torch.as_tensor(RNTIS.astype(np.int64)),
                           tc)[0]
-    return dict(jc=jc, tc=tc, pay=pay, td_j=td_j, td_t=td_t, rx=rx,
-                res_j=res_j, res_t=[r.numpy() for r in res_t],
-                llr_j=llr_j, llr_t=llr_t.numpy())
+    return dict(jc=jc, tc=tc, pay=pay, td_j=td_j, td_t=td_t, rx=rx, ul_j=ul_j,
+                res_j=[np.array(a) for a in res_j], res_t=[r.numpy() for r in res_t],
+                llr_j=np.array(llr_j), llr_t=llr_t.numpy())
 
 
 def _carry_close(got, want, llr_diff):
@@ -125,9 +132,8 @@ def test_retransmission(loopback):
     rx2 = (td + (rng.normal(size=td.shape) + 1j * rng.normal(size=td.shape))
            * np.sqrt(nv / 2)).astype(np.complex64)
     soft_j = loopback["res_j"][4]
-    res_j = [np.asarray(a) for a in jax.jit(lambda x, sb: jsp.ul_slot_batch(
-        x, jnp.asarray(RNTIS), jc, soft_buffer=sb))(jnp.asarray(rx2),
-                                                     jnp.asarray(soft_j))]
+    res_j, llr_j = loopback["ul_j"](jnp.asarray(rx2), jnp.asarray(soft_j))
+    res_j, llr_j = [np.asarray(a) for a in res_j], np.asarray(llr_j)
     soft_t, rntis_t = convert.harq_state_from_numpy(soft_j, RNTIS, device="cpu")
     assert soft_t.dtype == torch.int8 and rntis_t.dtype == torch.int64
     res_t = [r.numpy() for r in tsp.ul_slot_batch(rx2, rntis_t, tc,
@@ -135,8 +141,6 @@ def test_retransmission(loopback):
     np.testing.assert_array_equal(res_t[0], res_j[0])
     np.testing.assert_array_equal(res_t[1], res_j[1])
     assert res_j[1].all()
-    llr_j = np.asarray(jax.jit(lambda x: jsp._ul_front(
-        x, jnp.asarray(RNTIS), jc)[0])(jnp.asarray(rx2)))
     llr_t = tsp._ul_front(torch.as_tensor(rx2), rntis_t, tc)[0].numpy()
     _carry_close(res_t[4], res_j[4], int((llr_t != llr_j).sum())
                  + int((loopback["llr_t"] != loopback["llr_j"]).sum()))

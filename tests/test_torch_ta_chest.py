@@ -131,8 +131,10 @@ def test_ul_slot_batch_ta_estimator():
     nv = float(np.mean(np.abs(td) ** 2)) * 10 ** (-20 / 10)
     rx = (td + (rng.normal(size=td.shape) + 1j * rng.normal(size=td.shape))
           * np.sqrt(nv / 2)).astype(np.complex64)
-    res_j = [np.asarray(a) for a in jax.jit(lambda x: jsp.ul_slot_batch(
-        x, jnp.asarray(RNTIS), jc))(jnp.asarray(rx))]
+    res_j, llr_j = jax.jit(lambda x: (jsp.ul_slot_batch(x, jnp.asarray(RNTIS), jc),
+                                      jsp._ul_front(x, jnp.asarray(RNTIS), jc)[0]))(
+        jnp.asarray(rx))
+    res_j, llr_j = [np.asarray(a) for a in res_j], np.asarray(llr_j)
     res_t = [a.numpy() for a in tsp.ul_slot_batch(rx, RNTIS.astype(np.int64), tc,
                                                   device="cpu")]
     assert res_j[1].all() and (res_j[0] == pay).all()
@@ -140,8 +142,6 @@ def test_ul_slot_batch_ta_estimator():
     np.testing.assert_array_equal(res_t[1], res_j[1])
     np.testing.assert_allclose(res_t[2], res_j[2], rtol=RTOL)
     np.testing.assert_allclose(res_t[3], res_j[3], atol=1e-2)
-    llr_j = np.asarray(jax.jit(lambda x: jsp._ul_front(
-        x, jnp.asarray(RNTIS), jc)[0])(jnp.asarray(rx)))
     llr_t = tsp._ul_front(torch.as_tensor(rx), torch.as_tensor(RNTIS.astype(np.int64)),
                           tc)[0].numpy()
     llr_diff = int((llr_t != llr_j).sum())
