@@ -138,6 +138,20 @@ Phases (any failure exits non-zero):
                RIC_SERVE_SLOTS slots of the scheduled cell (algorithm "rl"
                in the EdgeRIC stand-in) with every TB delivered; ms per
                iteration and episode.
+ 26. scale_out — the mesh path (parallel/mesh.py, mesh= of the slot and
+               full-cell programs) as a world of 1 over NCCL in this
+               process: parallel.dryrun's programs at 20 MHz (the (ue, cb)
+               slot step, the time-block stream, the SISO and 2x2 full gNB
+               slot at S = 10 with the HARQ carry, the 4x4 data plane),
+               payload-exact; the full gNB slot at S = 256 on a (1, 1) mesh
+               equal to mesh=None (payloads, tb_ok, the carry, ACK, CSI and
+               PRACH exact, samples within 1e-4, noise_var and cfo within
+               1e-4 of the peak), ms per slot of both in turns and the
+               collectives per step, the device profile of both steps;
+               K1 against its plain version on one
+               rank's codeblock share, and on no codeblocks (no launch);
+               then parallel.multihost as 2 processes on the card over gloo
+               (MULTIHOST_OK, seconds per step beside world 1's).
 
 Between phases 5 and 6 (they reuse the slice phase's tensors):
   5a. multi_cell — bench.py --cells=4: 4 carriers x 64 slots of the 20 MHz
@@ -259,6 +273,12 @@ FLOODING_CPU_CODEBLOCKS = 256
 RIC_PPO = dict(iterations=2, batch_steps=1024)
 RIC_NEURWIN_EPISODES = 20
 RIC_SERVE_SLOTS = 8
+# The scale-out (phase 26): the mesh full slot against mesh=None, chained
+# steps per turn, and the 2-process gloo worker's wait.
+SO_SAMPLE_ATOL = 1e-4
+SO_RTOL = 1e-4
+SO_STEPS = 10
+SO_GLOO_WAIT_S = 240
 
 
 def check(cond, msg: str) -> None:
@@ -575,16 +595,14 @@ def profile_summary(prof, n_prof: int, wall_ms: float) -> dict:
                 top_ms_per_step={k: v / n_prof / 1e3 for k, v in top})
 
 
-def phase_full_cell(fcm, sp, cuda_build, dec, dev, fc, tag, snr_db, steps):
-    """bench.py's bench_full_cell (or, at fc.n_layers > 1,
-    bench_full_cell_mimo) on the port: asserts, K1's launches, the chained
-    timed steps, the per-channel breakdown and the device profile.  Phases
-    ``<tag>``, ``<tag>_e2e``, ``<tag>_breakdown_ms_per_step`` and
-    ``<tag>_device_profile``."""
+def full_cell_inputs(fcm, sp, dev, fc, snr_db):
+    """bench.py's full-cell inputs at S_BATCH slots from the seed: the DL
+    payloads, DCIs and MIBs, the UE UL (through ``mix_matrix`` at
+    fc.n_layers > 1) and its noise, the HARQ carry of zeros, new_data = 1,
+    and the gNB calls of the configuration."""
     import torch
     mimo = fc.n_layers > 1
     s, u, n_l = S_BATCH, fc.nof_ue, fc.n_layers
-    t = fc.timing
     cell_u = fc.ul_cell()
     cell_n, cell_s = ((fc.dl_cell_mimo(), fc.dl_cell_ssb_mimo()) if mimo
                       else (fc.dl_cell(), fc.dl_cell_ssb()))
@@ -595,26 +613,44 @@ def phase_full_cell(fcm, sp, cuda_build, dec, dev, fc, tag, snr_db, steps):
         return torch.randint(0, 2, shape, generator=gen, device=dev,
                              dtype=torch.int8)
 
-    norm_idx, ssb_idx = fc.norm_slots(s), fc.ssb_slots(s)
-    pay_n = bits(len(norm_idx), u, cell_n.derived_tbs())
-    pay_s = bits(len(ssb_idx), u, cell_s.derived_tbs())
-    dci = bits(s, 2 * u, fc.dci_bits)
-    pbch = bits(len(ssb_idx), 24)
-    pay_u = bits(s, u, cell_u.derived_tbs())
-    ack = bits(s, u, 2)
-    csi = bits(len(fc.csi_slots(s)), u, fc.csi_bits)
-
+    x = dict(cell_u=cell_u, cell_n=cell_n, cell_s=cell_s, seg=seg, rm=rm,
+             pay_n=bits(len(fc.norm_slots(s)), u, cell_n.derived_tbs()),
+             pay_s=bits(len(fc.ssb_slots(s)), u, cell_s.derived_tbs()),
+             dci=bits(s, 2 * u, fc.dci_bits), pbch=bits(len(fc.ssb_slots(s)), 24),
+             pay_u=bits(s, u, cell_u.derived_tbs()), ack=bits(s, u, 2),
+             csi=bits(len(fc.csi_slots(s)), u, fc.csi_bits))
     if mimo:
-        gnb_dl, gnb_ul = fcm.gnb_dl_slot_batch_mimo, fcm.gnb_ul_slot_batch_mimo
+        x.update(gnb_dl=fcm.gnb_dl_slot_batch_mimo, gnb_ul=fcm.gnb_ul_slot_batch_mimo)
         mix = mix_matrix(n_l, gen, dev)
-        ul = torch.einsum("pl,slt->spt", mix,
-                          fcm.ue_ul_slot_batch_mimo(pay_u, ack, csi, fc, s, device=dev))
+        x["ul"] = torch.einsum("pl,slt->spt", mix, fcm.ue_ul_slot_batch_mimo(
+            x["pay_u"], x["ack"], x["csi"], fc, s, device=dev))
     else:
-        gnb_dl, gnb_ul = fcm.gnb_dl_slot_batch, fcm.gnb_ul_slot_batch
-        ul = fcm.ue_ul_slot_batch(pay_u, ack, csi, fc, s, device=dev)
-    noise = awgn(ul, snr_db, gen)
-    ones = torch.ones((s, u), device=dev)
-    soft0 = torch.zeros((s * u * seg.c, rm.n_cb), dtype=torch.int8, device=dev)
+        x.update(gnb_dl=fcm.gnb_dl_slot_batch, gnb_ul=fcm.gnb_ul_slot_batch)
+        x["ul"] = fcm.ue_ul_slot_batch(x["pay_u"], x["ack"], x["csi"], fc, s,
+                                       device=dev)
+    x.update(noise=awgn(x["ul"], snr_db, gen), ones=torch.ones((s, u), device=dev),
+             soft0=torch.zeros((s * u * seg.c, rm.n_cb), dtype=torch.int8,
+                               device=dev))
+    return x
+
+
+def phase_full_cell(fcm, sp, cuda_build, dec, dev, fc, tag, snr_db, steps):
+    """bench.py's bench_full_cell (or, at fc.n_layers > 1,
+    bench_full_cell_mimo) on the port: asserts, K1's launches, the chained
+    timed steps, the per-channel breakdown and the device profile.  Phases
+    ``<tag>``, ``<tag>_e2e``, ``<tag>_breakdown_ms_per_step`` and
+    ``<tag>_device_profile``."""
+    import torch
+    mimo = fc.n_layers > 1
+    s, u, n_l = S_BATCH, fc.nof_ue, fc.n_layers
+    t = fc.timing
+    x = full_cell_inputs(fcm, sp, dev, fc, snr_db)
+    cell_u, cell_n, cell_s, seg, rm = (x[k] for k in ("cell_u", "cell_n", "cell_s",
+                                                       "seg", "rm"))
+    pay_n, pay_s, dci, pbch, pay_u, ack, csi = (
+        x[k] for k in ("pay_n", "pay_s", "dci", "pbch", "pay_u", "ack", "csi"))
+    gnb_dl, gnb_ul, ul, noise, ones, soft0 = (
+        x[k] for k in ("gnb_dl", "gnb_ul", "ul", "noise", "ones", "soft0"))
 
     def step(pn, eps, flip, soft):
         """One full-cell DL TX + UL RX slot batch, chained as bench.py."""
@@ -2236,6 +2272,151 @@ def phase_ric_train(cuda_build, dec, dev):
                         r["weights"] is not None for r in rec.slots)))
 
 
+def phase_scale_out(fcm, sp, cuda_build, dec, dev):
+    """The scale-out on the card: a world of 1 over NCCL in this process
+    runs parallel.dryrun's programs at 20 MHz and the full gNB slot (S =
+    S_BATCH, the full_cell inputs) on a (1, 1) mesh against mesh=None (bits
+    exact, samples within SO_SAMPLE_ATOL, noise_var and cfo within
+    SO_RTOL of the peak), times both in turns and the worker's two programs
+    at world 1; K1 against its plain version on the codeblocks that rank
+    (0, 0) of a (ue 2, cb 2) mesh decodes, and on no codeblocks (no
+    launch); then parallel.multihost as 2 processes on this card over gloo
+    (it takes the port's c10d all_gather on CUDA tensors, PERF.md).  K1's
+    launches are counted over the dry run and the mesh step; the device
+    profile of both steps says whether the mesh path's extra time is the
+    device's or the host's."""
+    import os
+    import tempfile
+    import types
+    import torch
+    import torch.distributed as dist
+    from srsran_edgeric_5g_tpu_torch.ops import ofdm
+    from srsran_edgeric_5g_tpu_torch.parallel import dryrun, mesh as mm, multihost as mh
+    t_phase = time.perf_counter()
+    fc, s = fcm.FullCellConfig(), S_BATCH
+    x = full_cell_inputs(fcm, sp, dev, fc, SNR_DB)
+    rx = x["ul"] + x["noise"]
+    store = tempfile.mkdtemp()
+    mm.init_distributed(num_processes=1, process_id=0, backend="nccl",
+                        init_method=f"file://{os.path.join(store, 'world1')}")
+    try:
+        mesh = mm.make_mesh(1, 1, device_type=dev.type)
+
+        def step(m):
+            td = fcm.gnb_dl_slot_batch(x["pay_n"], x["pay_s"], x["dci"], x["pbch"],
+                                       fc, s, device=dev, mesh=m)
+            res = fcm.gnb_ul_slot_batch(rx, fc, s, soft_in=x["soft0"],
+                                        new_data=x["ones"], soft_flat=True,
+                                        device=dev, mesh=m)
+            return td, res
+
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        report = dryrun.run(1, dev)
+        emit("scale_out_dryrun", world=1, backend="nccl",
+             seconds=time.perf_counter() - t0, programs=report)
+        mm.reset_collectives()
+        td_m, res_m = step(mesh)
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.LAUNCHES)
+        tally = mm.collective_stats()
+        td_n, res_n = step(None)
+        td_m, res_m = sp.unshard(td_m), {k: sp.unshard(v) for k, v in res_m.items()}
+        for k in ("payload", "tb_ok", "soft", "ack_bits", "csi_bits", "csi_ok",
+                  "prach_detected", "prach_delay"):
+            check(torch.equal(res_m[k], res_n[k]), f"scale_out mesh {k} != mesh=None")
+        check(bool(res_m["tb_ok"].all()) and torch.equal(res_m["payload"], x["pay_u"]),
+              "scale_out mesh full slot: PUSCH not recovered")
+        sample_err = float((td_m - td_n).abs().max())
+        check(sample_err <= SO_SAMPLE_ATOL, f"scale_out DL samples off by {sample_err}")
+        for k in ("noise_var", "cfo"):
+            err = float((res_m[k] - res_n[k]).abs().max())
+            check(err <= SO_RTOL * float(res_n[k].abs().max()),
+                  f"scale_out {k} off by {err}")
+        times = {"none": [], "mesh": []}
+        for name in ("none", "mesh", "mesh", "none"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SO_STEPS):
+                step(mesh if name == "mesh" else None)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / (SO_STEPS * s) * 1e3)
+        walls = {k: sum(v) / len(v) * s for k, v in times.items()}
+        emit("scale_out_device_profile",
+             **{k: device_profile(lambda k=k: step(mesh if k == "mesh" else None), 3,
+                                  walls[k]) for k in ("mesh", "none")})
+        world1 = {}
+        for name in ("cell", "carrier"):
+            _, sec, w_tally, _ = mh.run_program(name, 1, dev, repeat=3)
+            world1[name] = {"seconds": sec, "collectives": w_tally}
+        emit("scale_out_full_cell", world=1, backend="nccl", slots=s,
+             ms_per_slot_mesh=times["mesh"], ms_per_slot_none=times["none"],
+             collectives_per_step=tally,
+             collective_count_per_step=sum(v["count"] for v in tally.values()),
+             collective_bytes_per_step=sum(v["bytes"] for v in tally.values()),
+             max_sample_err=sample_err, launches=launches,
+             worker_programs_world1=world1)
+
+        # K1 on one rank's share: the codeblocks rank (0, 0) of a (ue 2,
+        # cb 2) mesh decodes, from this slot's decoder input.
+        cell_u, seg = x["cell_u"], x["seg"]
+        grid = ofdm.demodulate_slot(rx, fc.timing, scale=1.0)
+        llr = sp._ul_front(None, fcm._rntis(fc, dev), cell_u, rx_grid=grid)[0]
+        full = sp._decoder_input(llr.reshape(s * fc.nof_ue, -1), cell_u)
+        quad = types.SimpleNamespace(mesh_dim_names=("ue", "cb"), size=lambda d: 2)
+        lo, hi = mm.row_block(full.shape[0], quad, ("ue", "cb"), (0, 0))
+        per_path = phase_path_kernel(dec, "scale_out", dict(
+            decoder_input=full[lo:hi].contiguous(), bg=seg.bg, zc=seg.zc,
+            launches=launches))
+        cuda_build.reset_launches()
+        hard, ok, sweeps = dec.decode_layered(full[:0], seg.bg, seg.zc, NUM_ITERS,
+                                              wire=True, early_stop=True)
+        torch.cuda.synchronize()
+        k_bits = dec.get_graph(seg.bg, seg.zc).kb * seg.zc
+        check(tuple(hard.shape) == (0, k_bits) and ok.numel() == 0
+              and sweeps.numel() == 0 and not cuda_build.LAUNCHES,
+              f"K1 on 0 codeblocks: {tuple(hard.shape)} {dict(cuda_build.LAUNCHES)}")
+    finally:
+        dist.destroy_process_group()
+
+    # The worker as 2 processes on this card over gloo.
+    env = dict(os.environ, LOCAL_WORLD_SIZE="2")
+    env.pop("LOCAL_RANK", None)
+    init = f"file://{os.path.join(store, 'gloo2')}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "srsran_edgeric_5g_tpu_torch.parallel.multihost",
+         str(r), "2", init, "--device", "cuda", "--backend", "gloo",
+         "--programs", "cell,carrier", "--repeat", "3"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=SO_GLOO_WAIT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"multihost rank {r} over gloo: rc {p.returncode}\n"
+                                 f"{out[-3000:]}")
+    line = next((ln for ln in outs[0].splitlines() if ln.startswith("MULTIHOST_OK")), "")
+    check(bool(line), "multihost over gloo printed no MULTIHOST_OK")
+    print(line, flush=True)
+    gloo = json.loads(line[line.index("{"):])
+    emit("scale_out_multihost", ranks=2, backend="gloo", device="cuda",
+         wall_seconds=time.perf_counter() - t0,
+         seconds_per_step={k: v["seconds"] for k, v in gloo.items()},
+         world1_nccl_seconds_per_step={k: v["seconds"] for k, v in world1.items()},
+         collectives={k: v["collectives"] for k, v in gloo.items()})
+    shutil.rmtree(store, ignore_errors=True)
+    emit("scale_out", seconds=time.perf_counter() - t_phase)
+    return per_path
+
+
 def kernel_name(line: str):
     """layered_kernel<M> (M: 0 f32, 1 wire, 2 int8) or int8_tiled_sweep_kernel
     from a line naming a mangled kernel, else None."""
@@ -2372,6 +2553,9 @@ def main() -> int:
     emit("sched_kernel", kernel=decoder_cuda.KERNEL,
          per_path={name: per_path[name] for name in sched})
     phase_ric_train(cuda_build, decoder_cuda, dev)
+    # The scale-out: the mesh path as a world of 1 over NCCL, the worker as
+    # 2 processes over gloo; K1 on one rank's codeblock share.
+    per_path["scale_out"] = phase_scale_out(fcm, sp, cuda_build, decoder_cuda, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     zc40_f32, _ = synthetic_wire(encoder, dev, 2, 40, 64, 1.5, gen)
     zc40 = phase_per_ue_kernel(decoder_cuda, "synthetic",

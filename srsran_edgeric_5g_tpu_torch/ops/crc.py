@@ -66,3 +66,20 @@ def crc_check(bits_with_crc: torch.Tensor, name: str) -> torch.Tensor:
     """Boolean (...,): True where the trailing CRC is consistent (the
     remainder of message + CRC is zero)."""
     return torch.all(crc(bits_with_crc, name) == 0, dim=-1)
+
+
+def np_crc(bits: np.ndarray, name: str) -> np.ndarray:
+    """Host bitwise long-division CRC of a (N,) {0,1} message -> (L,) uint8
+    (MSB first): an oracle independent of the remainder tables."""
+    _, n_crc, poly = BY_NAME[name]
+    g = int(poly) | (1 << n_crc)
+    reg = 0
+    for b in bits.astype(int):
+        reg = (reg << 1) | int(b)
+        if reg >> n_crc:
+            reg ^= g
+    for _ in range(n_crc):                 # flush L zero bits
+        reg <<= 1
+        if reg >> n_crc:
+            reg ^= g
+    return ((reg >> np.arange(n_crc - 1, -1, -1)) & 1).astype(np.uint8)

@@ -140,7 +140,12 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
       * 'layered_rolls_i8': the reference's fixed-point decoder arithmetic
         (int8 wire load, saturating v2c, truncating scale, ±127 promotion)
         in int32 lanes, batch early stop; plain torch on any device.
+
+    A batch of no codeblocks (an empty shard) returns empty results.
     """
+    if llrs.shape[0] == 0 and schedule not in _TPU_FORMS:
+        from .decoder_cuda import empty_result
+        return empty_result(bg, zc, llrs.device)[:2]
     if schedule == "auto":
         if llrs.device.type == "cpu":
             schedule = "layered"

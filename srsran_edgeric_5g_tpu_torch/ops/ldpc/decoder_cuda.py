@@ -104,6 +104,8 @@ def decode_layered(llrs: torch.Tensor, bg: int, zc: int,
     tensor runs the plain version."""
     _check_input(llrs, bg, zc, wire)
     strict = _strict(wire, strict)
+    if llrs.shape[0] == 0:
+        return empty_result(bg, zc, llrs.device)
     if llrs.device.type == "cpu":
         return decode_layered_plain(llrs, bg, zc, num_iters, scaling, wire,
                                     early_stop, strict)
@@ -111,6 +113,15 @@ def decode_layered(llrs: torch.Tensor, bg: int, zc: int,
                   scaling, early_stop, strict=strict)
     cuda_build.LAUNCHES[KERNEL] += 1
     return out
+
+
+def empty_result(bg: int, zc: int, device: torch.device):
+    """(hard (0, kb*Zc) int8, ok (0,) bool, sweeps (0,) int32): a batch of
+    no codeblocks (an empty shard), returned without a launch."""
+    g = get_graph(bg, zc)
+    return (torch.empty((0, g.kb * zc), dtype=torch.int8, device=device),
+            torch.empty((0,), dtype=torch.bool, device=device),
+            torch.empty((0,), dtype=torch.int32, device=device))
 
 
 def _check_cuda(llrs: torch.Tensor, bg: int, zc: int, mode: int,
@@ -391,6 +402,9 @@ def decode_int8(llrs: torch.Tensor, bg: int, zc: int,
     depend on ``b_tile``.  A CUDA tensor runs the kernel (or raises); a CPU
     tensor runs ``decode_int8_plain``."""
     x = _int8_input(llrs, bg, zc, b_tile)
+    if x.shape[0] == 0:
+        out = empty_result(bg, zc, x.device)
+        return out if with_sweeps else out[:2]
     if llrs.device.type == "cpu":
         return decode_int8_plain(x, bg, zc, num_iters, b_tile, early_stop,
                                  with_sweeps=with_sweeps)

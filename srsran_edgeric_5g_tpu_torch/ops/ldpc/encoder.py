@@ -109,7 +109,7 @@ def encode(msg_bits: torch.Tensor, bg: int, zc: int,
     plan = get_encode_plan(bg, zc, msg_bits.device)
     b = msg_bits.shape[0]
 
-    m = msg_bits.reshape(b, -1).to(torch.int8)
+    m = msg_bits.flatten(1).to(torch.int8)
     s_all = torch.remainder(_row_sums(m, plan.idx_msg, plan.sel_msg), 2.0)
 
     s_core = s_all[:, :4].reshape(b, 4 * zc)
@@ -118,4 +118,16 @@ def encode(msg_bits: torch.Tensor, bg: int, zc: int,
     s_ext = _row_sums(p_core, plan.idx_core_ext, plan.sel_core_ext)
     p_ext = torch.remainder(s_all[:, 4:] + s_ext, 2.0).to(torch.int8)
 
-    return torch.cat([m, p_core, p_ext.reshape(b, -1)], dim=-1)
+    return torch.cat([m, p_core, p_ext.flatten(1)], dim=-1)
+
+
+def np_check_parity(codewords: np.ndarray, bg: int, zc: int) -> np.ndarray:
+    """Host oracle: H @ c over GF(2) per (B, cols*Zc) codeword -> (B,
+    rows*Zc) syndromes (all zero iff valid), accumulated edge by edge."""
+    g = get_graph(bg, zc)
+    b = codewords.shape[0]
+    z = np.arange(zc)
+    syn = np.zeros((b, g.rows, zc), dtype=np.int64)
+    for r, c, s in zip(g.edge_row, g.edge_col, g.edge_shift):
+        syn[:, r] += codewords[:, c * zc + (z + s) % zc]
+    return (syn % 2).reshape(b, -1)

@@ -13,6 +13,7 @@ recursion, reproducing the reference's piecewise-linear interval functions:
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -25,6 +26,25 @@ LLR_MAX = 120
 QM = {"bpsk": 1, "qpsk": 2, "qam16": 4, "qam64": 6, "qam256": 8}
 
 
+@functools.lru_cache(maxsize=None)
+def pam_levels(m: int) -> np.ndarray:
+    """Amplitudes of the 2**m-level NR Gray PAM indexed by bit pattern (bits
+    b0 ... b_{m-1} MSB first), by the TS 38.211 §5.1.3-5.1.6 nesting
+    a = (1-2b0)*[2^{m-1} - (1-2b1)*[... - (1-2b_{m-1})]], normalised to unit
+    average energy over the full QAM square."""
+    if m == 0:
+        return np.array([1.0])
+    amps = np.zeros(1 << m)
+    for i in range(1 << m):
+        bits = [(i >> (m - 1 - k)) & 1 for k in range(m)]
+        val = 0.0
+        for k in range(m - 1, -1, -1):
+            s = 1 - 2 * bits[k]
+            val = s if k == m - 1 else s * (2 ** (m - 1 - k) - val)
+        amps[i] = val
+    return amps / np.sqrt(2.0 * (4 ** m - 1) / 3.0)
+
+
 def _axis_amplitude(m: int) -> float:
     """Per-axis unit of the 2**m-level PAM (unit average symbol energy), as
     the float32 value the reference computes with."""
@@ -34,7 +54,7 @@ def _axis_amplitude(m: int) -> float:
 def modulate(bits: torch.Tensor, modulation: str) -> torch.Tensor:
     """int8 {0,1} bits (..., nsym*Qm) -> complex64 symbols (..., nsym)."""
     qm = QM[modulation]
-    s = (1 - 2 * bits.reshape(*bits.shape[:-1], -1, qm).to(torch.int32)
+    s = (1 - 2 * bits.unflatten(-1, (bits.shape[-1] // qm, qm)).to(torch.int32)
          ).to(torch.float32)                                  # (..., qm) signs
     if qm == 1:  # BPSK: d = ((1-2b) + j(1-2b)) / sqrt(2)
         v = s[..., 0] * float(np.float32(1 / np.sqrt(2)))
@@ -98,8 +118,8 @@ def demodulate_soft(symbols: torch.Tensor, noise_var: torch.Tensor,
     else:
         li = _axis_maxlog(re, rcp, qm)   # even bits b0, b2, ...
         lq = _axis_maxlog(im, rcp, qm)   # odd bits b1, b3, ...
-        llrs = torch.stack([li, lq], dim=-1).reshape(*li.shape[:-1], -1)
-    llrs = llrs.reshape(*symbols.shape[:-1], -1)
+        llrs = torch.stack([li, lq], dim=-1).flatten(-2)
+    llrs = llrs.flatten(-2)
     if not quantize:
         return llrs
     return quantize_llrs(llrs, RANGE_LIMIT_PSK if qm <= 2 else RANGE_LIMIT)

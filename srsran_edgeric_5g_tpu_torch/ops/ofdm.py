@@ -65,6 +65,14 @@ def phase_compensation(timing: SlotTiming, center_freq_hz: float,
     return np.exp(1j * ph).astype(np.complex64)
 
 
+def _dft(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """torch.fft over the last dim; a batch of no slots (an empty shard)
+    passes through, since the FFT libraries refuse an empty plan."""
+    if x.numel() == 0:
+        return x
+    return (torch.fft.ifft if inverse else torch.fft.fft)(x, dim=-1)
+
+
 def modulate_slot(grid: torch.Tensor, timing: SlotTiming,
                   center_freq_hz: float = 0.0, scale: float = 1.0,
                   slot_in_subframe: int = 0) -> torch.Tensor:
@@ -81,7 +89,7 @@ def modulate_slot(grid: torch.Tensor, timing: SlotTiming,
     x[..., _subcarrier_bins(nsubc, nfft, dev)] = grid.to(torch.complex64)
     coef = phase_compensation(timing, center_freq_hz, True, slot_in_subframe)
     coefs = torch.as_tensor(coef * np.complex64(scale), device=dev)
-    td = torch.fft.ifft(x, dim=-1) * float(np.float32(nfft))  # FFTW backward
+    td = _dft(x, inverse=True) * float(np.float32(nfft))  # FFTW backward
     td = td * coefs[:, None]
     flat = td.reshape(*td.shape[:-2], nsymb * nfft)
     return flat[..., _cp_gather_index(nfft, timing.cp.cp, dev)]
@@ -105,7 +113,7 @@ def demodulate_slot(samples: torch.Tensor, timing: SlotTiming,
     seg = samples[..., _data_gather_index(nfft, timing.cp.cp, window_offset, dev)]
     coef = phase_compensation(timing, center_freq_hz, False, slot_in_subframe)
     coefs = torch.as_tensor(coef * np.complex64(scale), device=dev)
-    fd = torch.fft.fft(seg, dim=-1).to(torch.complex64)
+    fd = _dft(seg, inverse=False).to(torch.complex64)
     fd = fd * coefs[:, None]
     if window_offset:
         omega = 2.0 * np.pi * window_offset / nfft

@@ -91,3 +91,30 @@ def encode(msg_bits: torch.Tensor, code: PolarCode) -> torch.Tensor:
     """(B, K) -> (B, N) polar-encoded mother codeword (allocate + transform
     as one product)."""
     return parity_dot(msg_bits, _tensors(code, msg_bits.device)[2])
+
+
+def np_encode(msg_bits: np.ndarray, code: PolarCode) -> np.ndarray:
+    """Host oracle: the PC register walk (TS 38.212 §5.3.1.2) bit by bit,
+    then the Kronecker generator: (B, K) -> (B, N) over GF(2)."""
+    f = np.array([[1, 0], [1, 1]], dtype=np.int64)
+    g = np.array([[1]], dtype=np.int64)
+    for _ in range(code.n):
+        g = np.kron(g, f)
+    bits = msg_bits
+    if code.dci_interleave is not None:
+        bits = bits[:, code.dci_interleave]
+    nb = code.nof_bits
+    u = np.zeros((msg_bits.shape[0], nb), dtype=np.int64)
+    info = set(code.info_set.tolist())
+    pc = set(code.pc_set.tolist())
+    for row in range(msg_bits.shape[0]):
+        y = np.zeros(5, dtype=np.int64)
+        next_bit = iter(bits[row])
+        for i in range(nb):
+            y = np.roll(y, 1)              # cyclic shift, y[0] <- y[4]
+            if i in pc:
+                u[row, i] = y[0]
+            elif i in info:
+                u[row, i] = int(next(next_bit))
+            y[0] ^= u[row, i]
+    return (u @ g) % 2

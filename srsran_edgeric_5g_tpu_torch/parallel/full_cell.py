@@ -395,17 +395,19 @@ def _rntis(fc: FullCellConfig, device: torch.device) -> torch.Tensor:
 
 
 def gnb_dl_slot_batch(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
-                      s_total: int, device: str | torch.device = "cuda"
-                      ) -> torch.Tensor:
+                      s_total: int, device: str | torch.device = "cuda",
+                      mesh=None) -> torch.Tensor:
     """Full DL slot batch -> (S, total) complex64 baseband samples.
 
     pay_norm: (S_norm, U, TBS_dl) PDSCH payloads of the non-SSB slots;
     pay_ssb: (S_ssb, U, TBS_dl_ssb) payloads of the SSB slots (shorter
     PDSCH); dci: (S, 2U, A) DCI payloads; pbch: (S_ssb, 24) MIB payloads.
+    On a mesh the PDSCH coding runs sharded (``slot_pipeline._dl_code``);
+    the control channels, grids and samples are replicated.
     """
     dev = resolve_device(device)
-    pay_norm, pay_ssb, dci, pbch = (torch.as_tensor(x, device=dev)
-                                    for x in (pay_norm, pay_ssb, dci, pbch))
+    pay_norm, pay_ssb = sp._on(pay_norm, dev), sp._on(pay_ssb, dev)
+    dci, pbch = (sp.unshard(sp._on(x, dev)) for x in (dci, pbch))
     cell_n, cell_s = fc.dl_cell(), fc.dl_cell_ssb()
     t = cell_n.timing
     norm_idx, ssb_idx = fc.norm_slots(s_total), fc.ssb_slots(s_total)
@@ -414,10 +416,10 @@ def gnb_dl_slot_batch(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
     rntis = _rntis(fc, dev)
     u, k = fc.nof_ue, fc.ssb_period
 
-    syms_n = sp._dl_code(pay_norm.reshape(len(norm_idx) * u, -1), rntis,
-                         cell_n).reshape(len(norm_idx), u, -1)
-    syms_s = sp._dl_code(pay_ssb.reshape(len(ssb_idx) * u, -1), rntis,
-                         cell_s).reshape(len(ssb_idx), u, -1)
+    syms_n = sp.unshard(sp._dl_code(pay_norm, rntis, cell_n, mesh=mesh)
+                        ).reshape(len(norm_idx), u, -1)
+    syms_s = sp.unshard(sp._dl_code(pay_ssb, rntis, cell_s, mesh=mesh)
+                        ).reshape(len(ssb_idx), u, -1)
     prows = pdcch_rows(dci, fc, s_total)                    # (S, nsubc)
     blocks = ssb_blocks(pbch, fc, s_total)                  # (S_ssb, 4, 240)
 
@@ -436,12 +438,15 @@ def gnb_dl_slot_batch(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
     g_n = sp._dl_grid(syms_n, cell_n, dmrs_scale=1.0, add_rows=rows_n)
     g_s = sp._dl_grid(syms_s, cell_s, dmrs_scale=1.0, add_rows=rows_s)
     grid = _slot_merge_period(g_s, g_n, k, s_total)
-    td = ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft)
+    return sp.shard(_tx_amplitude(ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft),
+                                  fc), mesh, ())
+
+
+def _tx_amplitude(td: torch.Tensor, fc: FullCellConfig) -> torch.Tensor:
+    """The TX amplitude controller every transmit passes through."""
     if fc.tx_ceiling > 0:
-        td, _ = amplitude.clip(td, fc.tx_gain, fc.tx_ceiling)
-    else:
-        td, _ = amplitude.scale(td, fc.tx_gain)
-    return td
+        return amplitude.clip(td, fc.tx_gain, fc.tx_ceiling)[0]
+    return amplitude.scale(td, fc.tx_gain)[0]
 
 
 # ============================================================ PUCCH
@@ -660,58 +665,65 @@ def _ue_ul_control(ack: torch.Tensor, csi: torch.Tensor, fc: FullCellConfig,
 def ue_ul_slot_batch(payloads, ack, csi, fc: FullCellConfig, s_total: int,
                      prach_preamble: int = 7, prach_delay: int = 24,
                      prach_amplitude: float = 0.002,
-                     device: str | torch.device = "cuda") -> torch.Tensor:
+                     device: str | torch.device = "cuda",
+                     mesh=None) -> torch.Tensor:
     """UE-side UL generator: (S, U, TBS_ul) PUSCH payloads + (S, U, 2) ACK
     bits + (S_csi, U, K) CSI bits -> (S, total) clean UL samples with
     PUSCH + PUCCH F1 (+ F2 / SRS / PRACH on their occasions).  The PRACH
     preamble arrives ``prach_amplitude`` under the PUSCH RMS (open-loop
-    power control targets the detector, not the PUSCH level)."""
+    power control targets the detector, not the PUSCH level).  On a mesh
+    the PUSCH coding runs sharded; the samples are replicated."""
     cell = fc.ul_cell()
     sp._check_siso(cell)
     dev = resolve_device(device)
-    payloads, ack, csi = (torch.as_tensor(x, device=dev)
-                          for x in (payloads, ack, csi))
+    payloads = sp._on(payloads, dev)
+    ack, csi = (sp.unshard(sp._on(x, dev)) for x in (ack, csi))
     t = cell.timing
-    s, u, tbs = payloads.shape
-    syms = sp._dl_code(payloads.reshape(s * u, tbs), _rntis(fc, dev),
-                       cell).reshape(s, u, -1)
+    s, u, _ = payloads.shape
+    syms = sp.unshard(sp._dl_code(payloads, _rntis(fc, dev), cell, mesh=mesh)
+                      ).reshape(s, u, -1)
     grid = sp._dl_grid(syms, cell)                # PUSCH DM-RS boost sqrt(2)
     td = ofdm.modulate_slot(grid + _ue_ul_control(ack, csi, fc, s_total), t,
                             scale=1.0 / t.nfft)
     ptd = torch.as_tensor(prach_occasion_td(fc, prach_preamble, prach_delay,
                                             prach_amplitude), device=dev)
     td[_slot_slice(fc.prach_slots(s_total))] += ptd
-    return td
+    return sp.shard(td, mesh, ())
 
 
 def ue_ul_slot_batch_mimo(payloads, ack, csi, fc: FullCellConfig, s_total: int,
                           prach_preamble: int = 7, prach_delay: int = 24,
                           prach_amplitude: float = 0.002,
-                          device: str | torch.device = "cuda") -> torch.Tensor:
+                          device: str | torch.device = "cuda",
+                          mesh=None) -> torch.Tensor:
     """UE-side MIMO UL generator: (S, U, TBS_L) PUSCH payloads (+ ACK / CSI)
     -> (S, L, total) per-port samples.  PUSCH layers on all ports; PUCCH
-    F1/F2, SRS and the PRACH occasion on port 0."""
+    F1/F2, SRS and the PRACH occasion on port 0.  On a mesh as
+    ``ue_ul_slot_batch``."""
     dev = resolve_device(device)
-    payloads, ack, csi = (torch.as_tensor(x, device=dev)
-                          for x in (payloads, ack, csi))
-    td = sp.dl_slot_batch_mimo(payloads, _rntis(fc, dev), fc.ul_cell(),
-                               extra_rows=_ue_ul_control(ack, csi, fc, s_total),
-                               device=dev)                     # (S, L, total)
+    ack, csi = (sp.unshard(sp._on(x, dev)) for x in (ack, csi))
+    td = sp.unshard(sp.dl_slot_batch_mimo(
+        payloads, _rntis(fc, dev), fc.ul_cell(),
+        extra_rows=_ue_ul_control(ack, csi, fc, s_total), device=dev,
+        mesh=mesh))                                            # (S, L, total)
     ptd = torch.as_tensor(prach_occasion_td(fc, prach_preamble, prach_delay,
                                             prach_amplitude), device=dev)
     td[_slot_slice(fc.prach_slots(s_total)), 0] += ptd
-    return td
+    return sp.shard(td, mesh, ())
 
 
 # ============================================================ gNB UL RX
 
 def _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid0, rx0,
-                fc: FullCellConfig, s_total: int, soft_flat: bool) -> dict:
-    """The UL result dict: the PUSCH outputs, and the single-port control
-    channels detected on one antenna's grid ``rx_grid0`` (S, nsymb, nsubc)
-    and samples ``rx0`` (S, total)."""
+                fc: FullCellConfig, s_total: int, soft_flat: bool,
+                mesh) -> dict:
+    """The UL result dict: the PUSCH outputs (on a mesh laid out as
+    ``slot_pipeline.ul_slot_batch``'s, the flat carry over the codeblock
+    axes), and the single-port control channels detected on one antenna's
+    grid ``rx_grid0`` (S, nsymb, nsubc) and samples ``rx0`` (S, total),
+    replicated."""
     s, u = rx_grid0.shape[0], fc.nof_ue
-    seg, _ = sp._plans(fc.ul_cell(), 0)
+    seg, rm = sp._plans(fc.ul_cell(), 0)
     ack_bits, ack_metric = _f1_detect(rx_grid0, fc, s_total)
     csi_bits, csi_ok = _f2_decode(_slot_take(rx_grid0, fc.csi_slots(s_total)),
                                   fc, s_total)
@@ -722,16 +734,22 @@ def _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid0, rx0,
         :, :info.cp_samples + info.dft_size]
     rx_freq = prach_mod.ofdm_demodulate_prach(win, info)
     pr_metric, pr_delay, pr_det = _prach_detect_batch(rx_freq, fc)
-    return {
-        "payload": payload.reshape(s, u, -1),
-        "tb_ok": tb_ok.reshape(s, u),
-        "noise_var": nv, "cfo": cfo,
-        "soft": soft if soft_flat else soft.reshape(s, u * seg.c, -1),
+    rows = sp.ROWS
+    control = {
         "ack_bits": ack_bits, "ack_metric": ack_metric,
         "csi_bits": csi_bits, "csi_ok": csi_ok,
         "srs_h": srs_h, "srs_snr_db": srs_snr,
         "prach_metric": pr_metric, "prach_delay": pr_delay,
         "prach_detected": pr_det,
+    }
+    return {
+        "payload": sp.shard(payload, mesh, rows, (s, u, payload.shape[-1])),
+        "tb_ok": sp.shard(tb_ok, mesh, rows, (s, u)),
+        "noise_var": sp.shard(nv, mesh, rows, (s, u)),
+        "cfo": sp.shard(cfo, mesh, rows, (s, u)),
+        "soft": sp.shard(soft, mesh, sp.CODEBLOCKS,
+                         None if soft_flat else (s, u * seg.c, rm.n_cb)),
+        **{k: sp.shard(v, mesh, ()) for k, v in control.items()},
     }
 
 
@@ -739,7 +757,7 @@ def gnb_ul_slot_batch(rx, fc: FullCellConfig, s_total: int,
                       soft_in=None, new_data=None,
                       num_iters: int = decoder.DEFAULT_ITERS,
                       soft_flat: bool = False, early_stop: bool = True,
-                      device: str | torch.device = "cuda") -> dict:
+                      device: str | torch.device = "cuda", mesh=None) -> dict:
     """Full UL slot batch: (S, total) samples -> every UL channel's results.
 
     Returns a dict: payload (S, U, TBS), tb_ok (S, U), noise_var, cfo,
@@ -750,20 +768,25 @@ def gnb_ul_slot_batch(rx, fc: FullCellConfig, s_total: int,
     ``soft_flat``: take and return the HARQ state in the decoder's flat
     (S*U*C, n_cb) layout, as a caller does that feeds it straight back.
     ``new_data``: (S, U) mask, 1 = new transmission (its buffer is zeroed).
+
+    On a mesh every rank demodulates the whole batch (the control channels
+    are replicated); the PUSCH front, dematch and decode run on the rank's
+    rows and codeblocks.  ``soft_in`` may be the sharded carry of the
+    previous call.
     """
     cell = fc.ul_cell()
     sp._check_siso(cell)
     dev = resolve_device(device)
-    rx = torch.as_tensor(rx, device=dev)
-    s, u = rx.shape[0], fc.nof_ue
+    rx = sp.unshard(sp._on(rx, dev))
     rx_grid = ofdm.demodulate_slot(rx, cell.timing, scale=1.0)  # (S, nsymb, nsubc)
-    llr, nv, cfo = sp._ul_front(None, _rntis(fc, dev), cell, rx_grid=rx_grid)
-    sb_flat, nd_flat = sp._harq_flat(soft_in, new_data, cell, s, dev, soft_flat)
-    payload, tb_ok, soft = sp._ul_back(llr.reshape(s * u, -1), cell, 0,
-                                       num_iters, sb_flat, nd_flat,
-                                       early_stop=early_stop)
+    llr, nv, cfo = sp._ul_front(None, _rntis(fc, dev), cell, rx_grid=rx_grid,
+                                mesh=mesh)
+    payload, tb_ok, soft = sp._ul_back(llr, cell, 0, num_iters,
+                                       sp._on(soft_in, dev),
+                                       sp._on(new_data, dev),
+                                       early_stop=early_stop, mesh=mesh)
     return _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid, rx, fc, s_total,
-                       soft_flat)
+                       soft_flat, mesh)
 
 
 # ============================================================ MIMO variants
@@ -782,14 +805,14 @@ def _dl_control_rows(dci: torch.Tensor, fc: FullCellConfig,
 
 
 def gnb_dl_slot_batch_mimo(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
-                           s_total: int, device: str | torch.device = "cuda"
-                           ) -> torch.Tensor:
+                           s_total: int, device: str | torch.device = "cuda",
+                           mesh=None) -> torch.Tensor:
     """Full MIMO DL slot batch -> (S, L, total) per-port samples; payloads
     at the L-layer TBS of ``dl_cell_mimo`` / ``dl_cell_ssb_mimo``.  The
-    sub-batches' grids are merged and modulated once."""
+    sub-batches' grids are merged and modulated once.  On a mesh as
+    ``gnb_dl_slot_batch``."""
     dev = resolve_device(device)
-    pay_norm, pay_ssb, dci, pbch = (torch.as_tensor(x, device=dev)
-                                    for x in (pay_norm, pay_ssb, dci, pbch))
+    dci, pbch = (sp.unshard(sp._on(x, dev)) for x in (dci, pbch))
     cell_n, cell_s = fc.dl_cell_mimo(), fc.dl_cell_ssb_mimo()
     if fc.ssb_slots(s_total)[0] != 0:
         raise ValueError("the SSB occasions must start at slot 0")
@@ -799,41 +822,40 @@ def gnb_dl_slot_batch_mimo(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
     sc0 = fc.ssb_first_subcarrier
     ex_s = extra[0::k].clone()
     ex_s[:, 2:6, sc0:sc0 + 240] += ssb_blocks(pbch, fc, s_total)
-    g_n = sp.dl_slot_batch_mimo(pay_norm, rntis, cell_n,
-                                extra_rows=_slot_drop_period(extra, k),
-                                return_grid=True, device=dev)
-    g_s = sp.dl_slot_batch_mimo(pay_ssb, rntis, cell_s, extra_rows=ex_s,
-                                return_grid=True, device=dev)
+    g_n = sp.unshard(sp.dl_slot_batch_mimo(
+        pay_norm, rntis, cell_n, extra_rows=_slot_drop_period(extra, k),
+        return_grid=True, device=dev, mesh=mesh))
+    g_s = sp.unshard(sp.dl_slot_batch_mimo(
+        pay_ssb, rntis, cell_s, extra_rows=ex_s, return_grid=True, device=dev,
+        mesh=mesh))
     grid = _slot_merge_period(g_s, g_n, k, s_total)
     t = fc.timing
-    td = ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft)
-    if fc.tx_ceiling > 0:
-        td, _ = amplitude.clip(td, fc.tx_gain, fc.tx_ceiling)
-    else:
-        td, _ = amplitude.scale(td, fc.tx_gain)
-    return td
+    return sp.shard(_tx_amplitude(ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft),
+                                  fc), mesh, ())
 
 
 def gnb_ul_slot_batch_mimo(rx, fc: FullCellConfig, s_total: int,
                            soft_in=None, new_data=None,
                            num_iters: int = decoder.DEFAULT_ITERS,
                            soft_flat: bool = False, early_stop: bool = True,
-                           device: str | torch.device = "cuda") -> dict:
+                           device: str | torch.device = "cuda",
+                           mesh=None) -> dict:
     """Full MIMO UL slot batch: (S, P, total) antenna samples -> the result
     dict of ``gnb_ul_slot_batch`` (payload at the L-layer TBS).  All
     antennas are demodulated once; PUSCH takes the LxP front, PUCCH F1/F2,
-    SRS and PRACH antenna 0."""
+    SRS and PRACH antenna 0.  On a mesh as ``gnb_ul_slot_batch``."""
     cell = fc.ul_cell()
     dev = resolve_device(device)
-    rx = torch.as_tensor(rx, device=dev)
+    rx = sp.unshard(sp._on(rx, dev))
     t = cell.timing
     s, p_rx = rx.shape[:2]
     rx_grid = ofdm.demodulate_slot(rx.reshape(s * p_rx, -1), t, scale=1.0)
     rx_grid = rx_grid.reshape(s, p_rx, t.nsymb, t.nof_subc)
     llr, nv, cfo = sp._ul_front_mimo(None, _rntis(fc, dev), cell,
-                                     rx_grid=rx_grid)
-    sb_flat, nd_flat = sp._harq_flat(soft_in, new_data, cell, s, dev, soft_flat)
-    payload, tb_ok, soft = sp._ul_back(llr, cell, 0, num_iters, sb_flat,
-                                       nd_flat, early_stop=early_stop)
+                                     rx_grid=rx_grid, mesh=mesh)
+    payload, tb_ok, soft = sp._ul_back(llr, cell, 0, num_iters,
+                                       sp._on(soft_in, dev),
+                                       sp._on(new_data, dev),
+                                       early_stop=early_stop, mesh=mesh)
     return _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid[:, 0], rx[:, 0],
-                       fc, s_total, soft_flat)
+                       fc, s_total, soft_flat, mesh)

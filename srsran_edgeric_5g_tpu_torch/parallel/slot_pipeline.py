@@ -4,9 +4,7 @@ Port of ``srsran_edgeric_5g_tpu/parallel/slot_pipeline.py`` (the SISO,
 multi-cell and multi-layer programs).  One call processes a batch of slots
 for all UEs of a cell, or of several same-config carriers.  UE allocations
 are uniform-width and contiguous from a static first PRB, so every per-UE
-gather/scatter is a slice + reshape.  The reference's mesh sharding has no
-counterpart here: on one card the UE and codeblock axes are plain batch
-dimensions.
+gather/scatter is a slice + reshape.
 
 DL: segment -> LDPC encode -> rate match -> scramble -> modulate -> place
 subgrids -> OFDM modulate.  UL: OFDM demod -> DM-RS estimate -> MMSE
@@ -27,16 +25,31 @@ NC independent carriers of one configuration flatten into the slot batch,
 rows cell-major, then slot, then UE, each carrier with its own RNTIs; one
 decode covers every codeblock of every carrier.
 
+Sharding (``mesh=``, a ``DeviceMesh`` of ``mesh.py``; the reference's
+``with_sharding_constraint`` specs, laid out as ``DTensor`` blocks):
+  * TB rows (S*U, .)          -> P('ue')
+  * codeblock rows (S*U*C, .) -> P(('ue', 'cb'))
+  * resource grid / samples   -> replicated (the symbol rows are gathered)
+Each stage computes on the rank's block of rows with the same ops as
+without a mesh; K1 decodes the rank's codeblocks.  Multi-cell puts the
+carriers on the mesh's leading 'cell' (or 'host') axis: rows over
+('cell', 'ue'), codeblocks over ('cell', 'ue', 'cb'), samples over 'cell',
+and nothing crosses that axis.  The inputs are global tensors (the same on
+every rank) or DTensors; the outputs are DTensors (``unshard`` or
+``.full_tensor()`` gives the global tensor) with every rank's result equal
+to the one without a mesh.
+
 The entry points (``dl_slot``, ``dl_slot_batch``, ``ul_slot``,
 ``ul_slot_batch``, the multi-cell pair and the ``*_mimo`` pair) take
-``device`` ("cuda" by default) and move their inputs there; a CUDA request
-on a host without a CUDA device raises.
+``device`` ("cuda" by default; the rank's device on a mesh) and move their
+inputs there; a CUDA request on a host without a CUDA device raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -47,6 +60,11 @@ from ..ops import dmrs as dmrs_mod
 from ..ops.ldpc import decoder, encoder, rate_match, segmenter
 from ..ran.numerology import N_SC_PER_PRB, SlotTiming, slot_timing
 from ..ran.tbs import nof_re, tbs as tbs_calc
+from .mesh import (CB_AXIS, CELL_AXIS, HOST_AXIS, UE_AXIS, coordinate,
+                   is_dtensor, row_block, spec_axes, take, wrap)
+
+ROWS = (UE_AXIS,)                    # the reference's row_axes default
+CODEBLOCKS = ((UE_AXIS, CB_AXIS),)   # and cb_axes default
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +160,71 @@ def _dmrs_full_band(cell: CellConfig, device: torch.device) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def shard(x, mesh, spec, shape=None):
+    """``x`` laid out as ``P(*spec)`` on ``mesh`` (the reference's
+    ``with_sharding_constraint``): a DTensor of ``shape`` (a row-major
+    reshape of ``x``, default its shape) whose leading dim is split over
+    the spec's axes.  ``x`` is a global tensor (each rank keeps its block;
+    nothing moves) or a DTensor (gathered where its blocks do not hold the
+    new ones).  Without a mesh, ``x`` reshaped."""
+    shape = tuple(x.shape) if shape is None else tuple(shape)
+    if mesh is None:
+        return x.reshape(shape)
+    axes = spec_axes(mesh, spec)
+    local = take(x, mesh, lambda c: row_block(shape[0], mesh, axes, c), shape,
+                 into=axes)
+    return wrap(local, mesh, axes, shape)
+
+
+def unshard(x):
+    """The global tensor of ``x``: a DTensor all-gathered over its sharded
+    axes (counted in ``mesh.COLLECTIVES``; the counterpart of the
+    reference's ``multihost_utils.process_allgather``), anything else as
+    it is."""
+    if not is_dtensor(x):
+        return x
+    return take(x, x.device_mesh, lambda c: (0, x.shape[0]))
+
+
+def _axes(mesh, spec) -> tuple[str, ...]:
+    return () if mesh is None else spec_axes(mesh, spec)
+
+
+def _covering(block: tuple[int, int], unit: int) -> tuple[int, int]:
+    """The rows of ``unit`` sub-rows each that hold sub-rows [lo, hi)."""
+    lo, hi = block
+    return (lo // unit, -(-hi // unit)) if hi > lo else (lo // unit, lo // unit)
+
+
+def _share(n: int, unit: int, mesh, axes):
+    """A split over ``axes`` of the n*unit sub-rows of n rows (a TB's
+    codeblocks, a slot's UE rows): ``rows`` (coord -> the rows that hold a
+    rank's sub-rows), this rank's first such row, and its sub-rows as a
+    slice of those rows' sub-rows."""
+    rows = lambda crd: _covering(row_block(n * unit, mesh, axes, crd), unit)
+    me = coordinate(mesh)
+    (lo, hi), first = row_block(n * unit, mesh, axes, me), rows(me)[0]
+    return rows, first, slice(lo - first * unit, hi - first * unit)
+
+
+def _on(x, dev: torch.device):
+    """An input on ``dev``: a DTensor stays as it is (its blocks are on the
+    mesh's devices), None stays None."""
+    if x is None or is_dtensor(x):
+        return x
+    return torch.as_tensor(x, device=dev)
+
+
+def _carrier_specs(mesh):
+    """(samples, TB rows, codeblock rows) specs of the multi-carrier
+    programs: the carriers on the mesh's leading axis, 'cell' or 'host'."""
+    lead = CELL_AXIS if mesh is None else mesh.mesh_dim_names[0]
+    if lead not in (CELL_AXIS, HOST_AXIS):
+        raise ValueError(f"the carriers lie on a leading '{CELL_AXIS}' or "
+                         f"'{HOST_AXIS}' axis, not '{lead}'")
+    return (lead,), ((lead, UE_AXIS),), ((lead, UE_AXIS, CB_AXIS),)
+
+
 def _scrambling_inits(rntis: torch.Tensor, cell: CellConfig,
                       reps: int) -> torch.Tensor:
     """Per-row c_init (rnti << 15) + n_id for a slot-major (reps*U) batch."""
@@ -156,22 +239,35 @@ def _cell_ci(rntis: torch.Tensor, cell: CellConfig, nc: int,
     return ci_rows[:, None, :].expand(nc, s, cell.nof_ue).reshape(-1)
 
 
-def _dl_code(payloads: torch.Tensor, rntis: torch.Tensor | None,
-             cell: CellConfig, rv: int = 0,
-             ci: torch.Tensor | None = None) -> torch.Tensor:
-    """Coding front-end for a flat (B_tb, TBS) batch -> (B_tb, G/Qm) symbols:
-    all codeblocks of all TBs go through segment -> encode -> rate match ->
-    scramble -> modulate as one batch.  ``ci`` (B_tb,) replaces the per-row
-    scrambling inits derived from ``rntis`` (which may then be None)."""
+def _dl_code(payloads, rntis: torch.Tensor | None, cell: CellConfig,
+             rv: int = 0, ci: torch.Tensor | None = None, mesh=None,
+             row_axes=ROWS, cb_axes=CODEBLOCKS):
+    """Coding front-end for a (..., TBS) batch of B_tb TBs -> (B_tb, G/Qm)
+    symbols: all codeblocks of all TBs go through segment -> encode -> rate
+    match -> scramble -> modulate as one batch.  ``ci`` (B_tb,) replaces the
+    per-row scrambling inits derived from ``rntis`` (which may then be None).
+
+    On a mesh the rank segments the TBs that hold its block of codeblocks
+    (over ``cb_axes``), encodes and rate-matches that block, gathers the
+    bits of its block of TB rows (over ``row_axes``) and returns the symbols
+    as a DTensor of those rows."""
     seg, rm = _plans(cell, rv)
-    b_tb = payloads.shape[0]
-    cbs = segmenter.segment_tb(payloads, seg)                 # (B_tb*C, K)
-    cw = encoder.encode(cbs, seg.bg, seg.zc)                  # (B_tb*C, colsZc)
-    bits = rate_match.rate_match(cw, rm).reshape(b_tb, -1)    # (B_tb, G)
+    c, tbs = seg.c, payloads.shape[-1]
+    b_tb = math.prod(payloads.shape[:-1])
+    rows, cbx = _axes(mesh, row_axes), _axes(mesh, cb_axes)
+    cb_tbs, _, own = _share(b_tb, c, mesh, cbx)
+    tb_rows = lambda crd: row_block(b_tb, mesh, rows, crd)
+    cbs = segmenter.segment_tb(take(payloads, mesh, cb_tbs, (b_tb, tbs), cbx),
+                               seg)[own]                      # (block, K)
+    cw = encoder.encode(cbs, seg.bg, seg.zc)                  # (block, colsZc)
+    bits = wrap(rate_match.rate_match(cw, rm), mesh, cbx, (b_tb * c, rm.e))
+    bits = take(bits, mesh, tb_rows, (b_tb, c * rm.e), rows)  # (rows, G)
     if ci is None:
         ci = _scrambling_inits(rntis, cell, b_tb // cell.nof_ue)
-    bits = sequences.scramble_bits(bits, ci)
-    return modulation.modulate(bits, cell.modulation)         # (B_tb, G/Qm)
+    r0, r1 = tb_rows(coordinate(mesh))
+    bits = sequences.scramble_bits(bits, ci[r0:r1])
+    syms = modulation.modulate(bits, cell.modulation)         # (rows, G/Qm)
+    return wrap(syms, mesh, rows, (b_tb, syms.shape[-1]))
 
 
 def _dl_grid(syms: torch.Tensor, cell: CellConfig,
@@ -214,32 +310,60 @@ def _dl_grid_ofdm(syms: torch.Tensor, cell: CellConfig) -> torch.Tensor:
     return ofdm.modulate_slot(_dl_grid(syms, cell), t, scale=1.0 / t.nfft)
 
 
+def _dl_samples(payloads, rntis, cell: CellConfig, rv: int, device,
+                mesh) -> torch.Tensor:
+    """(..., U, TBS) payloads -> (S, total) samples, global on every rank:
+    the symbol rows are gathered, and every rank builds the grids and runs
+    the OFDM modulation."""
+    _check_siso(cell)
+    dev = resolve_device(device)
+    syms = unshard(_dl_code(_on(payloads, dev), unshard(_on(rntis, dev)),
+                            cell, rv, mesh=mesh))
+    return _dl_grid_ofdm(syms.reshape(-1, cell.nof_ue, syms.shape[-1]), cell)
+
+
 def dl_slot(payloads, rntis, cell: CellConfig, rv: int = 0,
-            device: str | torch.device = "cuda") -> torch.Tensor:
+            device: str | torch.device = "cuda", mesh=None) -> torch.Tensor:
     """DL direction: (U, TBS) payload bits -> (total,) baseband samples.
     UE u occupies PRBs [first_prb + u*prb_per_ue, ...)."""
-    return dl_slot_batch(torch.as_tensor(payloads)[None], rntis, cell, rv,
-                         device)[0]
+    return shard(_dl_samples(payloads, rntis, cell, rv, device, mesh)[0],
+                 mesh, ())
 
 
 def dl_slot_batch(payloads, rntis, cell: CellConfig, rv: int = 0,
-                  device: str | torch.device = "cuda") -> torch.Tensor:
+                  device: str | torch.device = "cuda",
+                  mesh=None) -> torch.Tensor:
     """Slot-batched DL: (S, U, TBS) payload bits + (U,) RNTIs -> (S, total)
     complex64 samples.  The coding front-end runs as ONE flat (S*U) batch;
     grid assembly and OFDM are batched over slots."""
+    return shard(_dl_samples(payloads, rntis, cell, rv, device, mesh), mesh, ())
+
+
+def _ul_slots(rx_samples, rntis, cell: CellConfig, rv: int, num_iters: int,
+              soft_buffer, new_data, device, mesh, batch: bool):
+    """The SISO UL of ``ul_slot_batch`` (``batch``: per-UE outputs (S, U,
+    ...)) and ``ul_slot`` (U, ...)."""
     _check_siso(cell)
     dev = resolve_device(device)
-    payloads = torch.as_tensor(payloads, device=dev)
-    rntis = torch.as_tensor(rntis, device=dev)
-    s, u, tbs = payloads.shape
-    syms = _dl_code(payloads.reshape(s * u, tbs), rntis, cell, rv)
-    return _dl_grid_ofdm(syms.reshape(s, u, -1), cell)
+    seg, rm = _plans(cell, rv)
+    rx_samples = _on(rx_samples, dev)
+    lead = (rx_samples.shape[0], cell.nof_ue) if batch else (cell.nof_ue,)
+    llr, nv, cfo = _ul_front(rx_samples, unshard(_on(rntis, dev)), cell,
+                             mesh=mesh)
+    payload, tb_ok, soft = _ul_back(llr, cell, rv, num_iters,
+                                    _on(soft_buffer, dev), _on(new_data, dev),
+                                    mesh=mesh)
+    soft_shape = (*lead[:-1], lead[-1] * seg.c, rm.n_cb)
+    return (shard(payload, mesh, ROWS, (*lead, payload.shape[-1])),
+            shard(tb_ok, mesh, ROWS, lead), shard(nv, mesh, ROWS, lead),
+            shard(cfo, mesh, ROWS, lead),
+            shard(soft, mesh, CODEBLOCKS, soft_shape))
 
 
 def ul_slot_batch(rx_samples, rntis, cell: CellConfig, rv: int = 0,
                   num_iters: int = decoder.DEFAULT_ITERS,
                   soft_buffer=None, new_data=None,
-                  device: str | torch.device = "cuda"):
+                  device: str | torch.device = "cuda", mesh=None):
     """Slot-batched UL: (S, total) samples -> (payload (S, U, TBS) int8,
     tb_ok (S, U), noise_var (S, U), cfo (S, U), soft (S, U*C, n_cb) int8).
 
@@ -249,63 +373,49 @@ def ul_slot_batch(rx_samples, rntis, cell: CellConfig, rv: int = 0,
     that TB (its soft buffer is zeroed before combining).  The front-end
     and the dematch/decode back-end run as one flat (S*U) TB batch.
     """
-    _check_siso(cell)
-    dev = resolve_device(device)
-    rx_samples = torch.as_tensor(rx_samples, device=dev)
-    rntis = torch.as_tensor(rntis, device=dev)
-    s, u = rx_samples.shape[0], cell.nof_ue
-    seg, _ = _plans(cell, rv)
-    llr, nv, cfo = _ul_front(rx_samples, rntis, cell)         # (S, U, G)
-    sb_flat, nd_flat = _harq_flat(soft_buffer, new_data, cell, s, dev)
-    payload, tb_ok, soft = _ul_back(llr.reshape(s * u, -1), cell, rv,
-                                    num_iters, sb_flat, nd_flat)
-    return (payload.reshape(s, u, -1), tb_ok.reshape(s, u), nv, cfo,
-            soft.reshape(s, u * seg.c, -1))
-
-
-def _harq_flat(soft_buffer, new_data, cell: CellConfig, s: int,
-               dev: torch.device, soft_flat: bool = False):
-    """The HARQ carry in the decoder's flat (S*U*C, n_cb) layout (given in
-    that layout with ``soft_flat``, else as (S, U*C, n_cb)) and the flat
-    (S*U,) new_data mask, on ``dev``; each None when not given."""
-    sb_flat = None if soft_buffer is None else torch.as_tensor(soft_buffer, device=dev)
-    if sb_flat is not None and not soft_flat:
-        sb_flat = sb_flat.reshape(s * cell.nof_ue * _plans(cell)[0].c, -1)
-    nd_flat = (None if new_data is None else
-               torch.as_tensor(new_data, device=dev).reshape(s * cell.nof_ue))
-    return sb_flat, nd_flat
+    return _ul_slots(rx_samples, rntis, cell, rv, num_iters, soft_buffer,
+                     new_data, device, mesh, True)
 
 
 def ul_slot(rx_samples, rntis, cell: CellConfig, rv: int = 0,
             num_iters: int = decoder.DEFAULT_ITERS, soft_buffer=None,
-            device: str | torch.device = "cuda"):
+            device: str | torch.device = "cuda", mesh=None):
     """UL direction: (total,) samples -> decoded (U, TBS), (U,) crc_ok,
     (U,) noise_var, (U,) cfo, (U*C, n_cb) HARQ soft buffer."""
-    sb = None if soft_buffer is None else torch.as_tensor(soft_buffer)[None]
-    payload, tb_ok, nv, cfo, soft = ul_slot_batch(
-        torch.as_tensor(rx_samples)[None], rntis, cell, rv, num_iters, sb,
-        device=device)
-    return payload[0], tb_ok[0], nv[0], cfo[0], soft[0]
+    return _ul_slots(rx_samples, rntis, cell, rv, num_iters, soft_buffer,
+                     None, device, mesh, False)
 
 
-def _ul_front(rx_samples: torch.Tensor | None, rntis: torch.Tensor | None,
-              cell: CellConfig, rx_grid: torch.Tensor | None = None,
-              ci: torch.Tensor | None = None):
+def _ul_front(rx_samples, rntis: torch.Tensor | None, cell: CellConfig,
+              rx_grid=None, ci: torch.Tensor | None = None, mesh=None,
+              row_axes=ROWS):
     """OFDM demod -> chest -> MMSE -> demap -> wire quantise -> descramble:
-    (S, total) samples -> ((S, U, G) LLRs, (S, U) noise_var, (S, U) cfo).
-    ``rx_grid`` (S, nsymb, nsubc) skips the OFDM demodulation when the
-    caller already demodulated the slots (the full cell shares one grid
-    between PUSCH, PUCCH and SRS).  ``ci`` (S*U,) replaces the per-row
-    descrambling inits derived from ``rntis`` (multi-cell flattens the
-    carriers into the S dim)."""
+    (S, total) samples (any (..., total) batch of S slots) -> ((S, U, G)
+    LLRs, (S, U) noise_var, (S, U) cfo).  ``rx_grid`` (S, nsymb, nsubc)
+    skips the OFDM demodulation when the caller already demodulated the
+    slots (the full cell shares one grid between PUSCH, PUCCH and SRS).
+    ``ci`` (S*U,) replaces the per-row descrambling inits derived from
+    ``rntis`` (multi-cell flattens the carriers into the S dim).
+
+    On a mesh the rank demodulates the slots that hold its block of the
+    S*U rows (over ``row_axes``) and returns that block of the flat rows:
+    DTensors (S*U, G), (S*U,), (S*U,)."""
     t = cell.timing
     u, w = cell.nof_ue, cell.ue_width_sc
     span = u * w
     band0 = cell.first_prb * N_SC_PER_PRB
+    rows = _axes(mesh, row_axes)
+    n_slots = (rx_grid.shape[0] if rx_grid is not None
+               else math.prod(rx_samples.shape[:-1]))
+    slots, s0, own = _share(n_slots, u, mesh, rows)
 
     if rx_grid is None:
-        rx_grid = ofdm.demodulate_slot(rx_samples, t, scale=1.0)
-    s = rx_grid.shape[0]
+        rx_grid = ofdm.demodulate_slot(
+            take(rx_samples, mesh, slots, (n_slots, t.cp.total), rows), t,
+            scale=1.0)
+    else:
+        rx_grid = take(rx_grid, mesh, slots, into=rows)
+    s = rx_grid.shape[0]                                      # the rank's slots
     dev = rx_grid.device
     band = rx_grid[..., band0:band0 + span]                   # (S, nsymb, span)
 
@@ -359,101 +469,147 @@ def _ul_front(rx_samples: torch.Tensor | None, rntis: torch.Tensor | None,
     hh = h[:, None, :].expand(y.shape)
     x_hat, nv_out = equalizer.equalize_mmse_1xn(y[None], hh[None],
                                                 nv[None, :, None, None])
-    llr = modulation.demodulate_soft(x_hat.reshape(s * u, -1),
-                                     nv_out.reshape(s * u, -1),
+    llr = modulation.demodulate_soft(x_hat.reshape(s * u, ndata * w),
+                                     nv_out.reshape(s * u, ndata * w),
                                      cell.modulation, quantize=False)
     # The reference's int8 wire domain (in float): pairs with the decoder's
     # 'wire_auto' schedule.
     llr = modulation.wire_quantize(llr, cell.modulation)
     if ci is None:
-        ci = _scrambling_inits(rntis, cell, s)
-    llr = sequences.scramble_llrs(llr, ci)
-    return llr.reshape(s, u, -1), nv.reshape(s, u), cfo.reshape(s, u)
+        ci = _scrambling_inits(rntis, cell, n_slots)
+    llr = sequences.scramble_llrs(llr, ci[s0 * u:(s0 + s) * u])
+    llr, nv, cfo = llr[own], nv[own], cfo[own]
+    if mesh is None:
+        return llr.reshape(s, u, llr.shape[-1]), nv.reshape(s, u), cfo.reshape(s, u)
+    n = n_slots * u
+    return (wrap(llr, mesh, rows, (n, llr.shape[-1])), wrap(nv, mesh, rows, (n,)),
+            wrap(cfo, mesh, rows, (n,)))
 
 
 def _decoder_input(llr: torch.Tensor, cell: CellConfig, rv: int = 0,
                    soft_buffer: torch.Tensor | None = None,
                    new_data: torch.Tensor | None = None) -> torch.Tensor:
     """Rate dematch (+ HARQ combine) of a flat (B_tb, G) wire-LLR batch ->
-    (B_tb*C, cols*Zc) int8 decoder input.
+    (B_tb*C, cols*Zc) int8 decoder input.  A new transmission
+    (``new_data`` 1) zeroes its soft buffer before combining."""
+    seg, rm = _plans(cell, rv)
+    keep = None if new_data is None else (1.0 - new_data).repeat_interleave(seg.c)
+    return _dematch(llr.reshape(-1, rm.e), cell, rv, soft_buffer, keep)
+
+
+def _dematch(cb_llr: torch.Tensor, cell: CellConfig, rv: int,
+             soft_buffer: torch.Tensor | None,
+             keep: torch.Tensor | None) -> torch.Tensor:
+    """(n, E) wire LLRs of n codeblocks (+ their (n, n_cb) HARQ buffers,
+    each kept where ``keep`` is 1) -> (n, cols*Zc) int8 decoder input.
 
     Wire-domain combine: every LLR is an integer (demap clip ±20 -> ±120)
     and the combined buffer saturates at ±127 — the reference's saturated
     LLR sum — so the dematch runs in bf16 (integers <= 247 are exact) and
-    the result is exactly int8.  A new transmission (``new_data`` 1) zeroes
-    its soft buffer before combining."""
-    seg, rm = _plans(cell, rv)
-    b_tb = llr.shape[0]
-    cb_llr = llr.reshape(b_tb * seg.c, rm.e)
-    if soft_buffer is not None and new_data is not None:
-        keep = (1.0 - new_data).to(soft_buffer.dtype)
-        soft_buffer = soft_buffer * keep.repeat_interleave(seg.c)[:, None]
+    the result is exactly int8."""
+    _, rm = _plans(cell, rv)
+    if soft_buffer is not None and keep is not None:
+        soft_buffer = soft_buffer * keep.to(soft_buffer.dtype)[:, None]
     full = rate_match.rate_dematch(cb_llr, rm, soft_buffer,
                                    dtype=torch.bfloat16, saturate=True)
     return full.to(torch.int8)
 
 
-def _ul_back(llr: torch.Tensor, cell: CellConfig, rv: int = 0,
+def _ul_back(llr, cell: CellConfig, rv: int = 0,
              num_iters: int = decoder.DEFAULT_ITERS,
-             soft_buffer: torch.Tensor | None = None,
-             new_data: torch.Tensor | None = None,
-             early_stop: bool = True):
-    """Rate dematch (+ HARQ soft combine) + LDPC decode + TB CRC for a flat
-    (B_tb, G) LLR batch -> (payload, tb_ok, new_soft), new_soft the
-    (B_tb*C, n_cb) int8 circular buffers (the per-HARQ-process rx_buffer
-    state of the reference)."""
+             soft_buffer=None, new_data=None, early_stop: bool = True,
+             mesh=None, row_axes=ROWS, cb_axes=CODEBLOCKS):
+    """Rate dematch (+ HARQ soft combine) + LDPC decode + TB CRC for a
+    (..., G) batch of B_tb TBs' LLRs -> (payload (B_tb, TBS), tb_ok (B_tb,),
+    new_soft (B_tb*C, n_cb)), new_soft the int8 circular buffers (the
+    per-HARQ-process rx_buffer state of the reference).  ``soft_buffer``
+    (any reshape of (B_tb*C, n_cb)) is the carry to combine with;
+    ``new_data`` (B_tb TBs) zeroes it where 1.
+
+    On a mesh the rank dematches and decodes its block of the B_tb*C
+    codeblocks (over ``cb_axes``; K1 on the card), then gathers the hard
+    bits of its block of TB rows (over ``row_axes``) for the TB CRC.  The
+    outputs are DTensors of those blocks; the carry may come in as one."""
     seg, rm = _plans(cell, rv)
-    full = _decoder_input(llr, cell, rv, soft_buffer, new_data)
+    c, g = seg.c, llr.shape[-1]
+    b_tb = math.prod(llr.shape[:-1])
+    rows, cbx = _axes(mesh, row_axes), _axes(mesh, cb_axes)
+    cb_block = lambda crd: row_block(b_tb * c, mesh, cbx, crd)
+    cb_tbs, _, own = _share(b_tb, c, mesh, cbx)
+    cb_llr = take(llr, mesh, cb_tbs, (b_tb, g), cbx).reshape(-1, rm.e)[own]
+    sb = (None if soft_buffer is None else
+          take(soft_buffer, mesh, cb_block, (b_tb * c, rm.n_cb), cbx))
+    keep = (None if new_data is None else
+            (1.0 - take(new_data, mesh, cb_tbs, (b_tb,), cbx)).repeat_interleave(c)[own])
+    full = _dematch(cb_llr, cell, rv, sb, keep)
     new_soft = full[:, 2 * seg.zc:2 * seg.zc + rm.n_cb]
     hard, _ = decoder.decode(full, seg.bg, seg.zc, num_iters=num_iters,
                              early_stop=early_stop, schedule="wire_auto")
-    payload, tb_ok = segmenter.desegment_tb(hard, seg)
-    return payload, tb_ok, new_soft
+    k = hard.shape[-1]
+    hard = take(wrap(hard, mesh, cbx, (b_tb * c, k)), mesh,
+                lambda crd: row_block(b_tb, mesh, rows, crd), (b_tb, c * k), rows)
+    payload, tb_ok = segmenter.desegment_tb(hard.reshape(-1, k), seg)
+    return (wrap(payload, mesh, rows, (b_tb, payload.shape[-1])),
+            wrap(tb_ok, mesh, rows, (b_tb,)),
+            wrap(new_soft, mesh, cbx, (b_tb * c, rm.n_cb)))
 
 
 # ================================================================= multi-cell
 
 def multi_cell_dl_slot_batch(payloads, rntis, cell: CellConfig, rv: int = 0,
-                             device: str | torch.device = "cuda") -> torch.Tensor:
+                             device: str | torch.device = "cuda",
+                             mesh=None) -> torch.Tensor:
     """Multi-carrier DL: (NC, S, U, TBS) payloads + (NC, U) RNTIs ->
     (NC, S, total) complex64 samples.
 
     The carriers are independent cells of one configuration (the reference
     runs one PHY instance per sector), so they flatten into the slot batch:
     the coding front-end runs as one (NC*S*U) TB batch, grid + OFDM over
-    NC*S slots."""
+    NC*S slots.  On a mesh the carriers lie on its leading axis ('cell' or
+    'host'): rows over it and 'ue', codeblocks over it, 'ue' and 'cb', and
+    each rank modulates its block of carriers (no data crosses that axis)."""
     _check_siso(cell)
     dev = resolve_device(device)
-    payloads = torch.as_tensor(payloads, device=dev)
-    rntis = torch.as_tensor(rntis, device=dev)
+    payloads = _on(payloads, dev)
+    rntis = unshard(_on(rntis, dev))
     nc, s, u, tbs = payloads.shape
-    syms = _dl_code(payloads.reshape(nc * s * u, tbs), None, cell, rv,
-                    ci=_cell_ci(rntis, cell, nc, s))
-    return _dl_grid_ofdm(syms.reshape(nc * s, u, -1), cell).reshape(nc, s, -1)
+    carriers, row_axes, cb_axes = _carrier_specs(mesh)
+    syms = _dl_code(payloads, None, cell, rv, ci=_cell_ci(rntis, cell, nc, s),
+                    mesh=mesh, row_axes=row_axes, cb_axes=cb_axes)
+    cax = _axes(mesh, carriers)
+    syms = take(syms, mesh, lambda crd: row_block(nc, mesh, cax, crd),
+                (nc, s * u, syms.shape[-1]), cax)
+    td = _dl_grid_ofdm(syms.reshape(-1, u, syms.shape[-1]), cell)
+    return wrap(td.reshape(syms.shape[0], s, -1), mesh, cax, (nc, s, td.shape[-1]))
 
 
 def multi_cell_ul_slot_batch(rx_samples, rntis, cell: CellConfig, rv: int = 0,
                              num_iters: int = decoder.DEFAULT_ITERS,
-                             device: str | torch.device = "cuda"):
+                             device: str | torch.device = "cuda", mesh=None):
     """Multi-carrier UL: (NC, S, total) samples + (NC, U) RNTIs ->
     (payload (NC, S, U, TBS), tb_ok, noise_var, cfo (NC, S, U),
     soft (NC, S, U*C, n_cb)).  The carriers flatten into the slot batch:
     one front-end over NC*S slots and one early-stop decode over all
-    NC*S*U*C codeblocks."""
+    NC*S*U*C codeblocks; on a mesh as ``multi_cell_dl_slot_batch``, every
+    output over the carrier axis."""
     _check_siso(cell)
     dev = resolve_device(device)
-    rx_samples = torch.as_tensor(rx_samples, device=dev)
-    rntis = torch.as_tensor(rntis, device=dev)
-    nc, s, total = rx_samples.shape
+    rx_samples = _on(rx_samples, dev)
+    rntis = unshard(_on(rntis, dev))
+    nc, s, _ = rx_samples.shape
     u = cell.nof_ue
-    seg, _ = _plans(cell, rv)
-    llr, nv, cfo = _ul_front(rx_samples.reshape(nc * s, total), None, cell,
-                             ci=_cell_ci(rntis, cell, nc, s))
-    payload, tb_ok, soft = _ul_back(llr.reshape(nc * s * u, -1), cell, rv,
-                                    num_iters)
-    return (payload.reshape(nc, s, u, -1), tb_ok.reshape(nc, s, u),
-            nv.reshape(nc, s, u), cfo.reshape(nc, s, u),
-            soft.reshape(nc, s, u * seg.c, -1))
+    seg, rm = _plans(cell, rv)
+    carriers, row_axes, cb_axes = _carrier_specs(mesh)
+    llr, nv, cfo = _ul_front(rx_samples, None, cell,
+                             ci=_cell_ci(rntis, cell, nc, s), mesh=mesh,
+                             row_axes=row_axes)
+    payload, tb_ok, soft = _ul_back(llr, cell, rv, num_iters, mesh=mesh,
+                                    row_axes=row_axes, cb_axes=cb_axes)
+    lead = (nc, s, u)
+    return (shard(payload, mesh, carriers, (*lead, payload.shape[-1])),
+            shard(tb_ok, mesh, carriers, lead), shard(nv, mesh, carriers, lead),
+            shard(cfo, mesh, carriers, lead),
+            shard(soft, mesh, carriers, (nc, s, u * seg.c, rm.n_cb)))
 
 
 # ================================================================ multi-layer
@@ -488,18 +644,21 @@ def _dmrs_rows_mimo(cell: CellConfig, device: torch.device) -> torch.Tensor:
 def dl_slot_batch_mimo(payloads, rntis, cell: CellConfig, rv: int = 0,
                        extra_rows: torch.Tensor | None = None,
                        return_grid: bool = False,
-                       device: str | torch.device = "cuda") -> torch.Tensor:
+                       device: str | torch.device = "cuda",
+                       mesh=None) -> torch.Tensor:
     """Multi-layer DL (or UE TX): (S, U, TBS_L) payloads -> (S, L, total)
     per-port samples, or with ``return_grid`` the (S, L, nsymb, nsubc)
     grids (a caller that merges grids modulates once).
 
     ``extra_rows``: optional (S, nsymb, nsubc) contribution added to port 0
     (control channels sent single-port on REs disjoint from the data band).
-    DM-RS rides at data amplitude.
+    DM-RS rides at data amplitude.  On a mesh the coding runs sharded as in
+    ``dl_slot_batch`` and the grids are built on every rank.
     """
     dev = resolve_device(device)
-    payloads = torch.as_tensor(payloads, device=dev)
-    rntis = torch.as_tensor(rntis, device=dev)
+    payloads = _on(payloads, dev)
+    rntis = unshard(_on(rntis, dev))
+    extra_rows = unshard(_on(extra_rows, dev))
     n_l = cell.n_layers
     t = cell.timing
     s, u, tbs = payloads.shape
@@ -508,7 +667,7 @@ def dl_slot_batch_mimo(payloads, rntis, cell: CellConfig, rv: int = 0,
     band0 = cell.first_prb * N_SC_PER_PRB
     ndata = len(cell.data_symbols)
 
-    syms = _dl_code(payloads.reshape(s * u, tbs), rntis, cell, rv)
+    syms = unshard(_dl_code(payloads, rntis, cell, rv, mesh=mesh))
     # d(L*i + l) -> layer l: (S, U, ndata, w, L) -> (S, L, ndata, U*w).
     m5 = syms.reshape(s, u, ndata, w, n_l).to(torch.complex64)
     band = m5.permute(0, 4, 2, 1, 3).reshape(s, n_l, ndata, span)
@@ -518,36 +677,40 @@ def dl_slot_batch_mimo(payloads, rntis, cell: CellConfig, rv: int = 0,
     grid[:, :, list(cell.dmrs_symbols)] = _dmrs_rows_mimo(cell, dev)
     if extra_rows is not None:
         grid[:, 0] += extra_rows.to(torch.complex64)
-    if return_grid:
-        return grid
-    return ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft)
+    if not return_grid:
+        grid = ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft)
+    return shard(grid, mesh, ())
 
 
 def ul_slot_batch_mimo(rx_samples, rntis, cell: CellConfig, rv: int = 0,
                        num_iters: int = decoder.DEFAULT_ITERS,
                        soft_buffer=None, new_data=None, early_stop: bool = True,
-                       device: str | torch.device = "cuda"):
+                       device: str | torch.device = "cuda", mesh=None):
     """Multi-antenna UL: (S, P, total) samples -> (payload (S, U, TBS_L),
     tb_ok (S, U), noise_var (S, U), cfo (S, U), soft (S, U*C, n_cb)), with
-    the HARQ contract of ``ul_slot_batch``."""
+    the HARQ contract and the mesh layout of ``ul_slot_batch``."""
     dev = resolve_device(device)
-    rx_samples = torch.as_tensor(rx_samples, device=dev)
-    rntis = torch.as_tensor(rntis, device=dev)
+    rx_samples = _on(rx_samples, dev)
     s, u = rx_samples.shape[0], cell.nof_ue
-    seg, _ = _plans(cell, rv)
-    llr, nv, cfo = _ul_front_mimo(rx_samples, rntis, cell)
-    sb_flat, nd_flat = _harq_flat(soft_buffer, new_data, cell, s, dev)
-    payload, tb_ok, soft = _ul_back(llr, cell, rv, num_iters, sb_flat, nd_flat,
-                                    early_stop=early_stop)
-    return (payload.reshape(s, u, -1), tb_ok.reshape(s, u), nv, cfo,
-            soft.reshape(s, u * seg.c, -1))
+    seg, rm = _plans(cell, rv)
+    llr, nv, cfo = _ul_front_mimo(rx_samples, unshard(_on(rntis, dev)), cell,
+                                  mesh=mesh)
+    payload, tb_ok, soft = _ul_back(llr, cell, rv, num_iters,
+                                    _on(soft_buffer, dev), _on(new_data, dev),
+                                    early_stop=early_stop, mesh=mesh)
+    return (shard(payload, mesh, ROWS, (s, u, payload.shape[-1])),
+            shard(tb_ok, mesh, ROWS, (s, u)), shard(nv, mesh, ROWS, (s, u)),
+            shard(cfo, mesh, ROWS, (s, u)),
+            shard(soft, mesh, CODEBLOCKS, (s, u * seg.c, rm.n_cb)))
 
 
-def _ul_front_mimo(rx_samples: torch.Tensor | None, rntis: torch.Tensor,
-                   cell: CellConfig, rx_grid: torch.Tensor | None = None):
+def _ul_front_mimo(rx_samples, rntis: torch.Tensor, cell: CellConfig,
+                   rx_grid=None, mesh=None, row_axes=ROWS):
     """Multi-antenna UL front: (S, P, total) samples, or a demodulated
     (S, P, nsymb, nsubc) ``rx_grid`` -> ((S*U, L*G) LLRs, (S, U) noise_var,
-    (S, U) cfo).
+    (S, U) cfo); on a mesh the rank's block of the S*U rows (over
+    ``row_axes``, from the slots that hold it), as DTensors (S*U, L*G),
+    (S*U,), (S*U,).
 
     Per (antenna, CDM group) the pilots are OCC-despread, (u ± v)/2 over
     pilot pairs, into half-rate virtual pilots for ``estimate_port``; the
@@ -563,12 +726,17 @@ def _ul_front_mimo(rx_samples: torch.Tensor | None, rntis: torch.Tensor,
     ndata = len(cell.data_symbols)
     ndmrs = len(cell.dmrs_symbols)
 
+    rows = _axes(mesh, row_axes)
+    n_slots = (rx_samples if rx_grid is None else rx_grid).shape[0]
+    slots, _, own = _share(n_slots, u, mesh, rows)
     if rx_grid is None:
+        rx_samples = take(rx_samples, mesh, slots, into=rows)
         s, p_rx, total = rx_samples.shape
         rx_grid = ofdm.demodulate_slot(rx_samples.reshape(s * p_rx, total), t,
                                        scale=1.0)
         rx_grid = rx_grid.reshape(s, p_rx, t.nsymb, t.nof_subc)
     else:
+        rx_grid = take(rx_grid, mesh, slots, into=rows)
         s, p_rx = rx_grid.shape[:2]
     dev = rx_grid.device
     band = rx_grid[..., band0:band0 + span]                   # (S, P, nsymb, span)
@@ -623,6 +791,12 @@ def _ul_front_mimo(rx_samples: torch.Tensor | None, rntis: torch.Tensor,
     x5 = x_hat.permute(0, 2, 1, 3, 4)                         # (S, U, n, w, L)
     nv5 = nv_out[:, :, None].expand(x5.shape)                 # (S, U, n, w, L)
     llr = modulation.demodulate_soft(x5, nv5, cell.modulation, quantize=False)
-    llr = modulation.wire_quantize(llr, cell.modulation).reshape(s * u, -1)
+    llr = modulation.wire_quantize(llr, cell.modulation).flatten(2).flatten(0, 1)
     llr = sequences.scramble_llrs(llr, _scrambling_inits(rntis, cell, s))
-    return llr, torch.mean(nv, dim=1), cfo
+    nv = torch.mean(nv, dim=1)
+    if mesh is None:
+        return llr, nv, cfo
+    n = n_slots * u
+    return (wrap(llr[own], mesh, rows, (n, llr.shape[-1])),
+            wrap(nv.reshape(-1)[own], mesh, rows, (n,)),
+            wrap(cfo.reshape(-1)[own], mesh, rows, (n,)))

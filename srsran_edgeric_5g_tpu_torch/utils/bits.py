@@ -6,6 +6,7 @@ only at host boundaries.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -39,3 +40,8 @@ def parity_dot(bits: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     """
     acc = torch.matmul(bits.to(torch.float32), mat.to(torch.float32))
     return torch.remainder(acc, 2.0).to(torch.int8)
+
+
+def np_parity_dot(bits: np.ndarray, mat: np.ndarray) -> np.ndarray:
+    """Host GF(2) product ``(bits @ mat) mod 2`` for table precomputation."""
+    return (bits.astype(np.int64) @ mat.astype(np.int64)) % 2
