@@ -19,8 +19,9 @@ Phases (any failure exits non-zero):
   4. kernels — each kernel against its plain PyTorch version on the card at
                the main path's decode shape (2048 x 15232, BG1 Zc=224, the
                real decoder input of phase 2) and at BG2 Zc=128, both modes,
-               and at BG2 Zc=40 (wire mode only), fixed sweeps and early
-               stop: equal hard bits, ok, sweeps.
+               and at BG2 Zc=40 (wire mode only), fixed sweeps, early stop
+               per codeblock and the batch exit that decode() runs (a group
+               exit over the whole batch): equal hard bits, ok, sweeps.
   5. timing  — the DL+UL step chained over TIMED_STEPS steps; a per-stage
                breakdown; the kernel alone (early stop, and fixed 0, 1 and 6
                sweeps: the slope is the cost of a sweep), its resident CTAs
@@ -152,6 +153,22 @@ Phases (any failure exits non-zero):
                rank's codeblock share, and on no codeblocks (no launch);
                then parallel.multihost as 2 processes on the card over gloo
                (MULTIHOST_OK, seconds per step beside world 1's).
+ 27. validation — the validation entry points (srsran_edgeric_5g_tpu_torch/
+               tools/), each through its own functions: bler_awgn
+               (bler_sweep's BLER_R1.md grid, 15 points x VAL_BLOCKS TBs, the
+               per-TB outcomes and hard bits equal to the plain "layered"
+               decode at every point), bler_parity (the three port columns at
+               every CASES point on VAL_PARITY_BLOCKS TBs, K1 wire equal to
+               the plain layered_wire on every 512-codeblock chunk),
+               bler_channels (AWGN and TDL-A at VAL_BLOCKS TBs, the RLF run
+               decoding 12 of 20) and chest_bler (MCS 15, both estimators),
+               both with the tool's per-TB outcomes equal to the plain
+               version's exit per TB, sched_churn (layouts of
+               VAL_SCHED_SLOTS PF slots, first-use and warm ms of the top
+               layouts) and kernel_bench (a line per stage); K1 (with the
+               path's exit group: the call, a 512-codeblock chunk or a TB)
+               against its plain version on each path's decoder inputs, its
+               ms, bound and sweeps per codeblock; the phases' seconds.
 
 Between phases 5 and 6 (they reuse the slice phase's tensors):
   5a. multi_cell — bench.py --cells=4: 4 carriers x 64 slots of the 20 MHz
@@ -210,6 +227,10 @@ QAM256_SNR_DB = 33.0
 # Queue C): a failure share above this bound is a fault.
 WIRE_FLOOR_MAX_TB_SHARE = 0.01
 NUM_ITERS = 6
+# K1's exits held against the plain version, (early_stop, exit_group):
+# fixed sweeps, per codeblock, and the batch rule that decode("auto") /
+# decode("wire_auto") run (the whole call as one group).
+EXITS = ((False, None), (True, 1), (True, None))
 # H100 SXM data sheet (see PERF.md): HBM
 # rate, and the 32-bit ALU rate = 67 TFLOP/s fp32 (FMA counted as two) / 2.
 HBM_BYTES_PER_S = 3.35e12
@@ -279,6 +300,16 @@ SO_SAMPLE_ATOL = 1e-4
 SO_RTOL = 1e-4
 SO_STEPS = 10
 SO_GLOO_WAIT_S = 240
+# The validation entry points (phase 27): TBs per point of each waterfall
+# (bler_parity cut from the tool's 1000 and bler_channels from its record's
+# 400, to keep the phases within a minute), the channel profiles run, the
+# layouts timed.
+VAL_BLOCKS = 64
+VAL_PARITY_BLOCKS = 256
+VAL_PROFILES = ("awgn", "tdla")
+VAL_SCHED_SLOTS = 1000
+VAL_SCHED_TOP = 3
+VAL_SCHED_PHY_SLOTS = 10
 
 
 def check(cond, msg: str) -> None:
@@ -423,19 +454,20 @@ def phase_kernels(sp, dec, encoder, dev, ctx):
     max_err = 0
     for name, bg, zc, inputs in cases:
         for wire, x in inputs.items():
-            for early_stop in (False, True):
+            for early_stop, group in EXITS:
                 k = dec.decode_layered(x, bg, zc, NUM_ITERS, wire=wire,
-                                       early_stop=early_stop)
+                                       early_stop=early_stop, exit_group=group)
                 p = dec.decode_layered_plain(x, bg, zc, NUM_ITERS, wire=wire,
-                                             early_stop=early_stop)
+                                             early_stop=early_stop, exit_group=group)
                 err = int((k[0].int() - p[0].int()).abs().max())
                 max_err = max(max_err, err)
                 same = all(torch.equal(a, b) for a, b in zip(k, p))
-                check(same, f"{name} wire={wire} early_stop={early_stop}: "
+                check(same, f"{name} wire={wire} early_stop={early_stop} group={group}: "
                             f"kernel != plain (max |hard diff| {err})")
                 emit("kernel_vs_plain", case=name, mode="wire" if wire else "f32",
-                     early_stop=early_stop, codeblocks=x.shape[0], equal=same,
-                     ok=int(k[1].sum()), mean_sweeps=float(k[2].float().mean()))
+                     early_stop=early_stop, exit_group=group, codeblocks=x.shape[0],
+                     equal=same, ok=int(k[1].sum()),
+                     mean_sweeps=float(k[2].float().mean()))
     return max_err
 
 
@@ -509,10 +541,13 @@ def phase_timing(sp, dec, dev, ctx):
     bg, zc = seg.bg, seg.zc
     from srsran_edgeric_5g_tpu_torch.ops.ldpc.graph import get_graph
     g = get_graph(bg, zc)
+    # The path's decode: wire mode with the batch exit.
     _, _, sweeps = dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
                                       early_stop=True)
     ms = cuda_ms(lambda: dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
                                             early_stop=True), 20)
+    ms_cb = cuda_ms(lambda: dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
+                                               early_stop=True, exit_group=1), 20)
     # Fixed 0, 1 and 6 sweeps: 0 is load, syndrome and store alone; the
     # slope is the cost of one sweep.
     fixed = {n: cuda_ms(lambda n=n: dec.decode_layered(full, bg, zc, n, wire=True,
@@ -531,10 +566,10 @@ def phase_timing(sp, dec, dev, ctx):
     emit("kernel_time", kernel="ldpc_layered", codeblocks=full.shape[0],
          blocks_per_sm=blocks,
          sweeps_total=total_sweeps, mean_sweeps=total_sweeps / full.shape[0],
-         wire_early_stop_ms=ms, wire_fixed_0_ms=fixed[0], wire_fixed_1_ms=fixed[1],
-         wire_fixed_6_ms=fixed[NUM_ITERS], f32_fixed_6_ms=ms_f32,
-         plain_wire_early_stop_ms=plain_ms, bytes=n_bytes, bound_ms=bound_ms,
-         bound_by=bound_by)
+         wire_batch_exit_ms=ms, wire_early_stop_ms=ms_cb, wire_fixed_0_ms=fixed[0],
+         wire_fixed_1_ms=fixed[1], wire_fixed_6_ms=fixed[NUM_ITERS],
+         f32_fixed_6_ms=ms_f32, plain_wire_batch_exit_ms=plain_ms, bytes=n_bytes,
+         bound_ms=bound_ms, bound_by=bound_by)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 slice_ms_per_slot=slot_ms, slice_breakdown=breakdown)
 
@@ -919,23 +954,26 @@ def phase_path_kernel(dec, path, ctx):
     from srsran_edgeric_5g_tpu_torch.ops.ldpc.graph import get_graph
     full, bg, zc = ctx["decoder_input"], ctx["bg"], ctx["zc"]
     max_err = 0
-    for early_stop in (False, True):
-        k = dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True, early_stop=early_stop)
+    for early_stop, group in EXITS:
+        k = dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True, early_stop=early_stop,
+                               exit_group=group)
         p = dec.decode_layered_plain(full, bg, zc, NUM_ITERS, wire=True,
-                                     early_stop=early_stop)
+                                     early_stop=early_stop, exit_group=group)
         err = int((k[0].int() - p[0].int()).abs().max())
         max_err = max(max_err, err)
         same = all(torch.equal(a, b) for a, b in zip(k, p))
-        check(same, f"{path} BG{bg} Zc={zc} early_stop={early_stop}: kernel != plain "
-                    f"(max |hard diff| {err})")
+        check(same, f"{path} BG{bg} Zc={zc} early_stop={early_stop} group={group}: "
+                    f"kernel != plain (max |hard diff| {err})")
         emit("kernel_vs_plain", case=f"{path} BG{bg} Zc={zc}", mode="wire",
-             early_stop=early_stop, codeblocks=full.shape[0], equal=same,
-             ok=int(k[1].sum()), mean_sweeps=float(k[2].float().mean()))
+             early_stop=early_stop, exit_group=group, codeblocks=full.shape[0],
+             equal=same, ok=int(k[1].sum()), mean_sweeps=float(k[2].float().mean()))
     g = get_graph(bg, zc)
     _, _, sweeps = dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
                                       early_stop=True)
     ms = cuda_ms(lambda: dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
                                             early_stop=True), 20)
+    ms_cb = cuda_ms(lambda: dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
+                                               early_stop=True, exit_group=1), 20)
     fixed = {n: cuda_ms(lambda n=n: dec.decode_layered(full, bg, zc, n, wire=True,
                                                        early_stop=False), 10)
              for n in (0, 1, NUM_ITERS)}
@@ -947,11 +985,13 @@ def phase_path_kernel(dec, path, ctx):
     emit("kernel_time", kernel=dec.KERNEL, path=path, bg=bg, zc=zc,
          codeblocks=full.shape[0], blocks_per_sm=dec.blocks_per_sm(dec.MODE_WIRE, bg, zc),
          sweeps_total=total_sweeps, mean_sweeps=total_sweeps / full.shape[0],
-         wire_early_stop_ms=ms, wire_fixed_0_ms=fixed[0], wire_fixed_1_ms=fixed[1],
-         wire_fixed_6_ms=fixed[NUM_ITERS], plain_wire_early_stop_ms=plain_ms,
-         bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by)
-    return dict(launches=ctx["launches"].get(dec.KERNEL, 0), max_abs_err=max_err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+         wire_batch_exit_ms=ms, wire_early_stop_ms=ms_cb, wire_fixed_0_ms=fixed[0],
+         wire_fixed_1_ms=fixed[1], wire_fixed_6_ms=fixed[NUM_ITERS],
+         plain_wire_batch_exit_ms=plain_ms, bytes=n_bytes, bound_ms=bound_ms,
+         bound_by=bound_by)
+    return dict(launches=ctx["launches"].get(dec.KERNEL, 0),
+                group_exit_launches=ctx["launches"].get(dec.KERNEL_GROUP_EXIT, 0),
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def tools_shape_llrs(encoder, dev, snr_db, gen):
@@ -1321,20 +1361,21 @@ def phase_per_ue_kernel(dec, path, inputs, launches):
     rows, max_err = [], 0
     for name, bg, zc, wire, x in inputs:
         strict = None if wire else False
-        for early_stop in (False, True):
+        for early_stop, group in EXITS:
             k = dec.decode_layered(x, bg, zc, NUM_ITERS, wire=wire,
-                                   early_stop=early_stop, strict=strict)
+                                   early_stop=early_stop, strict=strict, exit_group=group)
             p = dec.decode_layered_plain(x, bg, zc, NUM_ITERS, wire=wire,
-                                         early_stop=early_stop, strict=strict)
+                                         early_stop=early_stop, strict=strict,
+                                         exit_group=group)
             err = int((k[0].int() - p[0].int()).abs().max())
             max_err = max(max_err, err)
             same = all(torch.equal(a, b) for a, b in zip(k, p))
-            check(same, f"{name} BG{bg} Zc={zc} early_stop={early_stop}: kernel != "
-                        f"plain (max |hard diff| {err})")
+            check(same, f"{name} BG{bg} Zc={zc} early_stop={early_stop} group={group}: "
+                        f"kernel != plain (max |hard diff| {err})")
             emit("kernel_vs_plain", case=f"{name} BG{bg} Zc={zc}",
                  mode="wire" if wire else "f32 l<=0", early_stop=early_stop,
-                 codeblocks=x.shape[0], equal=same, ok=int(k[1].sum()),
-                 mean_sweeps=float(k[2].float().mean()))
+                 exit_group=group, codeblocks=x.shape[0], equal=same,
+                 ok=int(k[1].sum()), mean_sweeps=float(k[2].float().mean()))
         g = get_graph(bg, zc)
         _, _, sweeps = dec.decode_layered(x, bg, zc, NUM_ITERS, wire=wire,
                                           early_stop=True, strict=strict)
@@ -2000,7 +2041,8 @@ def phase_sched_rach_bcch(cuda_build, dec, dev):
     return dict(launches=k1, inputs=inputs)
 
 
-KERNEL_NAME = re.compile(r"(layered_kernel|int8_tiled_sweep_kernel)(?:ILi(\d)E)?")
+KERNEL_NAME = re.compile(
+    r"(layered_kernel|group_exit_kernel|int8_tiled_sweep_kernel)(?:ILi(\d)E)?")
 
 
 def phase_multi_cell(sp, cuda_build, dec, dev, tm):
@@ -2417,9 +2459,286 @@ def phase_scale_out(fcm, sp, cuda_build, dec, dev):
     return per_path
 
 
+def k1_on(dec, x, bg, zc, num_iters, wire, strict=False, group=None):
+    """K1 as a validation path runs it (one call, early stop over groups of
+    ``group`` codeblocks: the whole call by default) against its plain
+    version on the card: equal hard bits, ok and sweeps; the kernel's time
+    (CUDA events), the plain version's, the bound at the sweeps this data
+    took, and the plain version's (hard, ok) under ``plain``."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc.graph import get_graph
+
+    def run(fn):
+        return fn(x, bg, zc, num_iters, wire=wire, early_stop=True, strict=strict,
+                  exit_group=group)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    p = run(dec.decode_layered_plain)
+    end.record()
+    k = run(dec.decode_layered)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(k, p))
+    err = int((k[0].int() - p[0].int()).abs().max())
+    sweeps = int(k[2].sum())
+    g = get_graph(bg, zc)
+    n_bytes = x.numel() * x.element_size() + x.shape[0] * (g.kb * zc + 1 + 4)
+    bound_ms, bound_by = kernel_bound(g, zc, sweeps, n_bytes)
+    return dict(equal=same, max_abs_err=err, codeblocks=x.shape[0], bg=bg, zc=zc,
+                mode="wire" if wire else ("f32 l<=0" if not strict else "f32"),
+                num_iters=num_iters, exit_group=group, mean_sweeps=sweeps / x.shape[0],
+                ms=cuda_ms(lambda: run(dec.decode_layered), 3, warmup=1),
+                plain_ms=start.elapsed_time(end), bound_ms=bound_ms, bound_by=bound_by,
+                plain=p[:2])
+
+
+def wire_input(llrs):
+    """What decode("wire_auto") hands K1 for float wire LLRs: the ±64 load
+    clamp, as int8."""
+    import torch
+    return llrs.clamp(-64, 64).to(torch.int8).contiguous()
+
+
+def k1_launches(cuda_build, dec):
+    """(K1 calls, K1 group-exit launches) since the last reset."""
+    return (cuda_build.LAUNCHES.get(dec.KERNEL, 0),
+            cuda_build.LAUNCHES.get(dec.KERNEL_GROUP_EXIT, 0))
+
+
+def k1_path(rows, launches):
+    """One validation path's K1 entry: sums over its decoder inputs;
+    ``launches`` is (K1 calls, group-exit launches) of the path's run."""
+    check(all(r["equal"] for r in rows), f"K1 != plain on a waterfall input: "
+          f"{[{k: v for k, v in r.items() if k != 'plain'} for r in rows if not r['equal']][:2]}")
+    n = sum(r["codeblocks"] for r in rows)
+    return dict(launches=launches[0], group_exit_launches=launches[1],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=sum(r["bound_ms"] for r in rows),
+                bound_by="operations" if all(r["bound_by"] == "operations" for r in rows)
+                else "bytes", inputs=len(rows), codeblocks=n,
+                mean_sweeps=sum(r["mean_sweeps"] * r["codeblocks"] for r in rows) / n)
+
+
+def phase_bler_awgn(cuda_build, dec, dev):
+    """tools.bler_sweep's whole BLER_R1.md grid on the card (15 points x
+    VAL_BLOCKS TBs, default_rng(0) in the JAX tool's order): per point the
+    BLER, K1's launches, mean sweeps per codeblock, K1 ms and its bound.  At
+    every point (the steepest two among them) the per-TB outcomes and hard
+    bits equal the plain "layered" decode of the same realisations on the
+    card."""
+    import numpy as np
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder, segmenter
+    from srsran_edgeric_5g_tpu_torch.tools import bler_sweep
+    rng = np.random.default_rng(bler_sweep.SEED)
+    points, rows, launches = [], [], np.zeros(2, dtype=int)
+    for mcs_idx, snrs in bler_sweep.CASES.items():
+        for snr in snrs:
+            cuda_build.reset_launches()
+            p = bler_sweep.run_point(mcs_idx, snr, VAL_BLOCKS, rng, device=dev)
+            torch.cuda.synchronize()
+            n = k1_launches(cuda_build, dec)
+            launches += n
+            hard, _ = decoder.decode(p.llrs, p.seg.bg, p.seg.zc, bler_sweep.NUM_ITERS,
+                                     schedule="layered")
+            _, tb_ok = segmenter.desegment_tb(hard, p.seg)
+            check(torch.equal(hard, p.hard) and torch.equal(tb_ok, p.tb_ok),
+                  f"bler_awgn MCS {mcs_idx} {snr} dB: the card's TBs != plain layered")
+            r = k1_on(dec, p.llrs, p.seg.bg, p.seg.zc, bler_sweep.NUM_ITERS, wire=False)
+            rows.append(r)
+            points.append(dict(mcs=mcs_idx, snr_db=snr, tbs=p.tbs,
+                               failed=int((~p.tb_ok).sum()), bler=p.bler,
+                               k1_launches=n[0], codeblocks=r["codeblocks"],
+                               mean_sweeps=r["mean_sweeps"], k1_ms=r["ms"],
+                               plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                               bound_by=r["bound_by"]))
+    steep = sorted(points, key=lambda q: -min(q["failed"], VAL_BLOCKS - q["failed"]))[:2]
+    emit("bler_awgn", blocks=VAL_BLOCKS, points=points,
+         steepest=[(q["mcs"], q["snr_db"]) for q in steep])
+    return k1_path(rows, launches.tolist())
+
+
+def phase_bler_parity(cuda_build, dec, dev):
+    """tools.bler_parity's three port columns (wire_auto = K1 wire, the
+    plain layered_rolls_i8, auto = K1 f32) at every CASES point on
+    VAL_PARITY_BLOCKS TBs (the tool's 1000 cut to fit), each 512-codeblock
+    chunk with its own batch exit (one K1 call per point and column); at
+    every point K1 wire's hard bits and ok equal the plain layered_wire
+    decode of each chunk of the same buffer on the card."""
+    import numpy as np
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder
+    from srsran_edgeric_5g_tpu_torch.tools import bler_parity as bp
+    rows, points, launches = [], [], np.zeros(2, dtype=int)
+    for mcs_idx, _, grid in bp.CASES:
+        rng = np.random.default_rng(1000 + mcs_idx)
+        _, _, seg, rm, tx_cbs, syms = bp.build_point(mcs_idx, VAL_PARITY_BLOCKS,
+                                                     rng, device=dev)
+        for snr in grid:
+            buf = bp.llr_buffer(rm, syms, float(snr), rng, dev)
+            cuda_build.reset_launches()
+            hards = {s: bp.decode_ours(buf, seg, bp.NUM_ITERS, s) for s in bp.SCHEDULES}
+            torch.cuda.synchronize()
+            n = k1_launches(cuda_build, dec)
+            launches += n
+            k = decoder.decode(buf, seg.bg, seg.zc, bp.NUM_ITERS, schedule="wire_auto",
+                               exit_group=bp.CHUNK)
+            w = decoder.decode(buf, seg.bg, seg.zc, bp.NUM_ITERS,
+                               schedule="layered_wire", exit_group=bp.CHUNK)
+            check(torch.equal(hards["wire_auto"], k[0]) and torch.equal(k[0], w[0])
+                  and torch.equal(k[1], w[1]),
+                  f"bler_parity MCS {mcs_idx} {snr:+.2f} dB: K1 wire != layered_wire")
+            rows.append(k1_on(dec, buf, seg.bg, seg.zc, bp.NUM_ITERS, wire=True,
+                              group=bp.CHUNK))
+            points.append(dict(mcs=mcs_idx, snr_db=float(snr), k1_launches=n[0],
+                               mean_sweeps=rows[-1]["mean_sweeps"],
+                               k1_ms=rows[-1]["ms"], bound_ms=rows[-1]["bound_ms"],
+                               bler={s: bp.tb_bler(h, tx_cbs, seg.c)
+                                     for s, h in hards.items()}))
+    emit("bler_parity", blocks=VAL_PARITY_BLOCKS, cut_from=1000,
+         reference=bp.REFERENCE_COLUMN, points=points)
+    return k1_path(rows, launches.tolist())
+
+
+def tb_ok_per_tb(seg, row, ok, what):
+    """The tool's per-TB outcomes equal those of the plain version's exit per
+    TB (``k1_on``'s ``plain``, exit_group C) on the same decoder input."""
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc import segmenter
+    _, want = segmenter.desegment_tb(row["plain"][0], seg)
+    check(bool((want == ok).all()), f"{what}: the card's TB outcomes != the plain "
+          f"exit per TB ({int((want != ok).sum())} TBs differ)")
+
+
+def phase_bler_channels(cuda_build, dec, dev):
+    """tools.bler_channel_sweep's VAL_PROFILES at VAL_BLOCKS TBs per point
+    (a cut from the record's 400) and the RLF run, which decodes 12 of its
+    20 slots; K1 (wire, one call per point, each TB stopping on its own)
+    against its plain version on each point's stacked decoder input, and
+    the tool's per-TB outcomes against the plain version's."""
+    import numpy as np
+    import torch
+    from srsran_edgeric_5g_tpu_torch.models import pdsch
+    from srsran_edgeric_5g_tpu_torch.tools import bler_channel_sweep as cs
+    su = cs.setup(dev)
+    seg = pdsch._plans(su.cfg, 0)[0]
+    rng = np.random.default_rng(cs.SEED)
+    rows, points, launches = [], [], np.zeros(2, dtype=int)
+    for i, (prof, grid) in enumerate(cs.PROFILES):
+        for j, snr in enumerate(grid):
+            payloads = rng.integers(0, 2, (VAL_BLOCKS, su.tbs), dtype=np.int8)
+            if prof not in VAL_PROFILES:
+                continue
+            gen = torch.Generator(device=dev).manual_seed(cs.SEED * 1000 + 10 * i + j)
+            cuda_build.reset_launches()
+            ok, llrs = cs.run_point(prof, snr, payloads, gen, su)
+            torch.cuda.synchronize()
+            n = k1_launches(cuda_build, dec)
+            launches += n
+            rows.append(k1_on(dec, wire_input(llrs), seg.bg, seg.zc, NUM_ITERS,
+                              wire=True, group=seg.c))
+            tb_ok_per_tb(seg, rows[-1], ok, f"bler_channels {prof} {snr} dB")
+            points.append(dict(profile=prof, snr_db=snr, failed=int((~ok).sum()),
+                               bler=1.0 - float(ok.float().mean()), k1_launches=n[0],
+                               mean_sweeps=rows[-1]["mean_sweeps"]))
+    payloads = rng.integers(0, 2, (cs.RLF_SLOTS, su.tbs), dtype=np.int8)
+    cuda_build.reset_launches()
+    ok, _ = cs.rlf_run(payloads, torch.Generator(device=dev).manual_seed(3), su)
+    torch.cuda.synchronize()
+    launches += k1_launches(cuda_build, dec)
+    check(int(ok.sum()) == 12, f"RLF decoded {int(ok.sum())} of {cs.RLF_SLOTS}, not 12")
+    emit("bler_channels", blocks=VAL_BLOCKS, cut_from=400, points=points,
+         rlf_decoded=int(ok.sum()), rlf_slots=cs.RLF_SLOTS)
+    return k1_path(rows, launches.tolist())
+
+
+def phase_chest_bler(cuda_build, dec, dev):
+    """tools.chest_bler_ab's MCS 15 grid, both estimators, VAL_BLOCKS TBs per
+    point (default_rng(77 + 15): the JAX tool's grids); K1 (wire, one call
+    per receiver and point, each TB stopping on its own) against its plain
+    version on each decoder input, and the tool's per-TB outcomes against
+    the plain version's."""
+    import numpy as np
+    import torch
+    from srsran_edgeric_5g_tpu_torch.models import pdsch
+    from srsran_edgeric_5g_tpu_torch.tools import chest_bler_ab as ab
+    mcs_idx, _, grid = ab.CASES[0]
+    case = ab.Case(mcs_idx, VAL_BLOCKS, dev)
+    seg = pdsch._plans(case.cfg, 0)[0]
+    rows, points, launches = [], [], np.zeros(2, dtype=int)
+    for snr in grid:
+        g = case.grids(float(snr))
+        row = dict(snr_db=float(snr))
+        for name, ds in (("default", None), ("ta", ab.TA_DELAY_SPREAD_S)):
+            cuda_build.reset_launches()
+            ok, llrs = case.rx(g, ds)
+            torch.cuda.synchronize()
+            launches += k1_launches(cuda_build, dec)
+            row[name] = int((~ok).sum())
+            rows.append(k1_on(dec, wire_input(llrs), seg.bg, seg.zc, NUM_ITERS,
+                              wire=True, group=seg.c))
+            tb_ok_per_tb(seg, rows[-1], ok, f"chest_bler {name} {snr} dB")
+        points.append(row)
+    emit("chest_bler", mcs=mcs_idx, blocks=VAL_BLOCKS, failed_tbs=points,
+         reference=ab.REFERENCE_COLUMN)
+    return k1_path(rows, launches.tolist())
+
+
+def phase_sched_churn(dev):
+    """tools.sched_churn over VAL_SCHED_SLOTS PF slots (the scheduler runs
+    on the host; its layouts equal the JAX tool's in
+    tests/test_torch_tools.py): build, first-use and warm ms per slot of
+    the top VAL_SCHED_TOP layouts on the card (the DL slot and the UE's DL
+    receive)."""
+    from srsran_edgeric_5g_tpu_torch.tools import sched_churn as sc
+    _, layouts, first = sc.run_scheduler(VAL_SCHED_SLOTS)
+    rows = sc.layout_costs(layouts, dev, VAL_SCHED_TOP, VAL_SCHED_PHY_SLOTS)
+    check(all(r["tb_ok"] for r in rows), "sched_churn: a layout's first slot failed")
+    total = sum(layouts.values())
+    emit("sched_churn", slots=VAL_SCHED_SLOTS, layouts=len(layouts),
+         scheduled_slots=total, discovered=sc.discovered(first, VAL_SCHED_SLOTS),
+         top5_share=sum(c for _, c in layouts.most_common(5)) / total, top=rows)
+
+
+def phase_kernel_bench(cuda_build, dec, dev):
+    """tools.kernel_bench: one line per stage (CUDA events, 20 calls), and
+    K1 on its decode lines' input (64 x BG1 Zc = 384 at 6.5 dB): "auto"
+    (f32, l <= 0, the batch exit) against its plain version."""
+    import numpy as np
+    from srsran_edgeric_5g_tpu_torch.tools import kernel_bench as kb
+    cuda_build.reset_launches()
+    stages = kb.run(20, dev)
+    launches = k1_launches(cuda_build, dec)
+    emit("kernel_bench", stages=stages)
+    _, llr = kb.decode_llrs(np.random.default_rng(0), dev)
+    return k1_path([k1_on(dec, llr, 1, 384, NUM_ITERS, wire=False)], launches)
+
+
+def phase_validation(cuda_build, dec, dev):
+    """Phase 27: the validation entry points (srsran_edgeric_5g_tpu_torch/
+    tools/); returns K1's per_path entries of the five paths that decode."""
+    t0 = time.perf_counter()
+    per_path, seconds = {}, {}
+    for name, fn in (("bler_awgn", phase_bler_awgn), ("bler_parity", phase_bler_parity),
+                     ("bler_channels", phase_bler_channels),
+                     ("chest_bler", phase_chest_bler),
+                     ("sched_churn", lambda cb, d, v: phase_sched_churn(v)),
+                     ("kernel_bench", phase_kernel_bench)):
+        t1 = time.perf_counter()
+        out = fn(cuda_build, dec, dev)
+        seconds[name] = time.perf_counter() - t1
+        if out is not None:
+            per_path[name] = out
+    emit("validation", seconds=time.perf_counter() - t0, phase_seconds=seconds,
+         per_path={k: {f: v[f] for f in ("launches", "group_exit_launches",
+                                         "mean_sweeps", "ms", "bound_ms")}
+                   for k, v in per_path.items()})
+    return per_path
+
+
 def kernel_name(line: str):
-    """layered_kernel<M> (M: 0 f32, 1 wire, 2 int8) or int8_tiled_sweep_kernel
-    from a line naming a mangled kernel, else None."""
+    """layered_kernel<M> or group_exit_kernel<M> (M: 0 f32, 1 wire, 2 int8)
+    or int8_tiled_sweep_kernel from a line naming a mangled kernel, else
+    None."""
     m = KERNEL_NAME.search(line)
     return m and m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
 
@@ -2556,6 +2875,8 @@ def main() -> int:
     # The scale-out: the mesh path as a world of 1 over NCCL, the worker as
     # 2 processes over gloo; K1 on one rank's codeblock share.
     per_path["scale_out"] = phase_scale_out(fcm, sp, cuda_build, decoder_cuda, dev)
+    # The validation entry points: K1 at full sweeps on waterfall input.
+    per_path.update(phase_validation(cuda_build, decoder_cuda, dev))
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     zc40_f32, _ = synthetic_wire(encoder, dev, 2, 40, 64, 1.5, gen)
     zc40 = phase_per_ue_kernel(decoder_cuda, "synthetic",
@@ -2575,7 +2896,10 @@ def main() -> int:
     kernels = [{
         "name": decoder_cuda.KERNEL, "route": "cuda", "source": src,
         "replaces": "srsran_edgeric_5g_tpu/ops/ldpc/decoder_pallas.py:224",
+        # K1 calls; a call with early stop over more than one codeblock
+        # also launches group_exit_kernel, counted apart.
         "launches": fcx["launches"].get(decoder_cuda.KERNEL, 0),
+        "group_exit_launches": fcx["launches"].get(decoder_cuda.KERNEL_GROUP_EXIT, 0),
         "max_abs_err": max(max_err, zc40["max_abs_err"],
                            *(v["max_abs_err"] for v in per_path.values())),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],

@@ -72,12 +72,22 @@
 //    operations per codeblock at BG1 Zc=224 instead of 316 gathers per lane.
 //
 // Early exit.  The Pallas kernels stop a whole tile of b_tile codeblocks once
-// every codeword of the tile meets parity (after at least one sweep).
+// every codeword of the tile meets parity (after at least one sweep); the
+// schedules that K1 computes off the TPU ("layered", "layered_wire") stop the
+// whole batch of a call once every codeword meets parity, and under the
+// reference's vmap over TBs each TB's codeblocks.  K1 takes the group size:
+// exit_group g stops each group of g consecutive codeblocks together.
 //  * Fused path (ldpc_layered_decode): all sweeps in one launch, each CTA
-//    decides for itself — the tile exit for b_tile == 1, and with
-//    early_stop == 0 the fixed-sweep decode for any b_tile.  After each sweep
-//    the CTA evaluates the syndrome of its hard bits (__syncthreads_or over
-//    the row parities); the same syndrome gives the `ok` output.
+//    decides for itself — g == 1, and with g == 0 the fixed-sweep decode.
+//    After each sweep the CTA evaluates the syndrome of its hard bits
+//    (__syncthreads_or over the row parities); the same syndrome gives the
+//    `ok` output.
+//  * Group exit (g > 1, modes 0 and 1): the fused path's per-codeblock exit,
+//    then group_exit_kernel decodes again, from the LLRs, every codeblock
+//    that stopped before its group would have.  A codeblock that met parity
+//    after f sweeps can miss it after more (measured on waterfall input,
+//    bler_sweep MCS 24 at 16 dB), so the per-codeblock exit alone does not
+//    give the group rule's bits.
 //  * Tiled path (ldpc_int8_decode_tiled, K2 with early stop and b_tile > 1):
 //    the CTAs of a tile are not guaranteed to be resident together, so they
 //    cannot wait for each other.
@@ -103,11 +113,15 @@
 // what stands between it and the floor.  The tiled path adds the L and R
 // round trip through device memory per sweep.
 
+#include <algorithm>
 #include <cstdint>
 #include <mutex>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kF32 = 0, kWire = 1, kInt8 = 2;
 
@@ -517,19 +531,21 @@ __device__ __forceinline__ void copy_elems(T* dst, const T* src, int n, bool vec
   }
 }
 
-// Fused path: every sweep of one codeblock in one launch.
+// Decode codeblock `cb` in the calling CTA, whose tables load_tables has put
+// in shared memory (layout o): load its LLRs, run up to num_iters sweeps
+// (with early_stop, until its own syndrome is zero), store its hard bits, ok
+// and sweep count.  Returns 1 if its syndrome is violated (block-uniform).
+// A CTA may call it for several codeblocks in turn.
 template <int M>
-__global__ void __launch_bounds__(kMaxZc, 2)
-layered_kernel(const typename Types<M>::In* __restrict__ llr,
-               int8_t* __restrict__ hard, uint8_t* __restrict__ ok_out,
-               int32_t* __restrict__ sweeps_out, unsigned char* __restrict__ r_state,
-               Tables tb, int rows, int cols, int kb, int n_edges, int n_big, int zc,
-               int num_iters,
-               Scale sc, int early_stop, int hard_le, int vec_in, int vec_out) {
+__device__ int decode_codeblock(int cb, unsigned char* smem, const Layout& o,
+                                const typename Types<M>::In* __restrict__ llr,
+                                int8_t* __restrict__ hard, uint8_t* __restrict__ ok_out,
+                                int32_t* __restrict__ sweeps_out,
+                                unsigned char* __restrict__ r_state, int rows, int cols,
+                                int kb, int n_big, int zc, int num_iters, Scale sc,
+                                int early_stop, int hard_le, int vec_in, int vec_out) {
   using LT = typename Types<M>::L;
-  extern __shared__ __align__(16) unsigned char smem[];
   const int z = threadIdx.x;
-  const Layout o = load_tables<M>(smem, tb, rows, cols, n_edges, n_big, zc, M != kF32);
   const uint32_t* s_edge = reinterpret_cast<const uint32_t*>(smem);
   const uint16_t* s_cs = reinterpret_cast<const uint16_t*>(smem + o.cs);
   const uint16_t* s_rs = reinterpret_cast<const uint16_t*>(smem + o.rs);
@@ -537,11 +553,12 @@ layered_kernel(const typename Types<M>::In* __restrict__ llr,
   uint32_t* s_hb = reinterpret_cast<uint32_t*>(smem + o.hb);
   LT* s_l = reinterpret_cast<LT*>(smem + o.l);
   unsigned char* r;
-  if constexpr (M == kF32) r = r_state + size_t(blockIdx.x) * r_bytes<M>(rows, n_big, zc);
+  if constexpr (M == kF32) r = r_state + size_t(cb) * r_bytes<M>(rows, n_big, zc);
   else r = smem + o.r;
   uint32_t* r_words = reinterpret_cast<uint32_t*>(r);
   uint8_t* r_big = r + size_t(rows) * zc * sizeof(uint32_t);
-  load_llrs<M>(s_l, llr + size_t(blockIdx.x) * cols * zc, cols * zc, vec_in);
+  __syncthreads();   // the previous codeblock's hard bits are stored
+  load_llrs<M>(s_l, llr + size_t(cb) * cols * zc, cols * zc, vec_in);
   __syncthreads();
 
   int it = 0;
@@ -557,10 +574,86 @@ layered_kernel(const typename Types<M>::In* __restrict__ llr,
   if (!early_stop || it == 0)
     violated = syndrome_violated<M>(s_l, s_hb, s_cs, s_rs, rows, cols, zc, hard_le);
 
-  store_hard<M>(s_l, hard + size_t(blockIdx.x) * kb * zc, kb * zc, vec_out, hard_le);
+  store_hard<M>(s_l, hard + size_t(cb) * kb * zc, kb * zc, vec_out, hard_le);
   if (z == 0) {
-    ok_out[blockIdx.x] = violated ? 0 : 1;
-    sweeps_out[blockIdx.x] = it;
+    ok_out[cb] = violated ? 0 : 1;
+    sweeps_out[cb] = it;
+  }
+  return violated;
+}
+
+// Fused path: every sweep of one codeblock in one launch.
+template <int M>
+__global__ void __launch_bounds__(kMaxZc, 2)
+layered_kernel(const typename Types<M>::In* __restrict__ llr,
+               int8_t* __restrict__ hard, uint8_t* __restrict__ ok_out,
+               int32_t* __restrict__ sweeps_out, unsigned char* __restrict__ r_state,
+               Tables tb, int rows, int cols, int kb, int n_edges, int n_big, int zc,
+               int num_iters,
+               Scale sc, int early_stop, int hard_le, int vec_in, int vec_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout o = load_tables<M>(smem, tb, rows, cols, n_edges, n_big, zc, M != kF32);
+  decode_codeblock<M>(blockIdx.x, smem, o, llr, hard, ok_out, sweeps_out, r_state, rows, cols,
+                      kb, n_big, zc, num_iters, sc, early_stop, hard_le, vec_in, vec_out);
+}
+
+// The group exit, after the fused path has decoded every codeblock with its
+// own exit (f_i sweeps).  The batch rule, applied to each group of `group`
+// consecutive codeblocks, runs every codeblock of a group for s* sweeps:
+// the first n at which every codeblock of the group meets parity, or
+// num_iters.  A codeblock's sweeps do not depend on the others, so s* >= F
+// = max f_i over the group (F = num_iters where one missed parity: it ran
+// them all), and a codeblock with f_i < target is decoded again from its
+// LLRs with exactly `target` sweeps.  If one of those misses parity, its
+// group's target moves up one sweep and every codeblock of the group is
+// decoded again, until a target has every codeblock of the group meeting
+// parity or target = num_iters.  Launched cooperatively with at most the
+// resident CTAs (each takes codeblocks blockIdx.x, + gridDim.x, ...), so the
+// grid can wait for itself between rounds.  ctrl (int32, zeroed by the
+// caller): [r] groups still open after round r (num_iters + 2 entries; a
+// group takes at most num_iters rounds), then per group its target (-1 once
+// settled), then per group a flag that a codeblock missed parity at it.
+template <int M>
+__global__ void __launch_bounds__(kMaxZc, 2)
+group_exit_kernel(const typename Types<M>::In* __restrict__ llr,
+                  int8_t* __restrict__ hard, uint8_t* __restrict__ ok_out,
+                  int32_t* __restrict__ sweeps_out, unsigned char* __restrict__ r_state,
+                  int32_t* __restrict__ ctrl, Tables tb, int batch, int group, int rows,
+                  int cols, int kb, int n_edges, int n_big, int zc, int num_iters, Scale sc,
+                  int hard_le, int vec_in, int vec_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int n_groups = (batch + group - 1) / group;
+  int32_t* still_open = ctrl;
+  int32_t* target = ctrl + num_iters + 2;
+  int32_t* missed = target + n_groups;
+  for (int i = int(grid.thread_rank()); i < batch; i += int(grid.num_threads()))
+    atomicMax(target + i / group, sweeps_out[i]);
+  const Layout o = load_tables<M>(smem, tb, rows, cols, n_edges, n_big, zc, M != kF32);
+  grid.sync();
+  for (int round = 0;; ++round) {
+    for (int cb = blockIdx.x; cb < batch; cb += gridDim.x) {
+      // Uniform: both were written before the last grid.sync.
+      const int t = target[cb / group];
+      if (t < 0 || sweeps_out[cb] == t) continue;
+      if (decode_codeblock<M>(cb, smem, o, llr, hard, ok_out, sweeps_out, r_state, rows, cols,
+                              kb, n_big, zc, t, sc, 0, hard_le, vec_in, vec_out) &&
+          threadIdx.x == 0)
+        missed[cb / group] = 1;
+    }
+    grid.sync();
+    for (int g = int(grid.thread_rank()); g < n_groups; g += int(grid.num_threads())) {
+      if (target[g] < 0) continue;
+      if (missed[g] && target[g] < num_iters) {
+        ++target[g];
+        missed[g] = 0;
+        atomicAdd(still_open + round, 1);
+      } else {
+        target[g] = -1;
+      }
+    }
+    grid.sync();
+    if (still_open[round] == 0) break;
   }
 }
 
@@ -633,6 +726,7 @@ cudaError_t allow_max_smem(const void* kernel) {
 }
 
 constexpr int kTiledTag = 3;
+constexpr int kGroupTag = 4;   // + M: the group-exit kernels
 
 inline int threads_for(int zc) { return 32 * ((zc + 31) / 32); }
 
@@ -642,18 +736,41 @@ inline bool aligned16(const void* p, size_t row_bytes) {
 
 template <int M>
 int launch(const void* llr, int8_t* hard, uint8_t* ok, int32_t* sweeps, void* r_state,
-           Tables tb, int batch, int rows, int cols, int kb, int n_edges, int n_big, int zc, int num_iters,
-           Scale sc, int early_stop, int hard_le, cudaStream_t stream) {
+           int32_t* ctrl, Tables tb, int batch, int rows, int cols, int kb, int n_edges,
+           int n_big, int zc, int num_iters, Scale sc, int exit_group, int hard_le,
+           cudaStream_t stream) {
   using In = typename Types<M>::In;
   const size_t smem = layout<M>(rows, cols, n_edges, n_big, zc, M != kF32).total;
   cudaError_t err = allow_max_smem<M>(reinterpret_cast<const void*>(layered_kernel<M>));
   if (err != cudaSuccess) return int(err);
+  int vec_in = aligned16(llr, size_t(cols) * zc * sizeof(In));
+  int vec_out = aligned16(hard, size_t(kb) * zc);
   layered_kernel<M><<<batch, threads_for(zc), smem, stream>>>(
       static_cast<const In*>(llr), hard, ok, sweeps, static_cast<unsigned char*>(r_state),
       tb, rows, cols, kb, n_edges, n_big, zc, num_iters, sc,
-      early_stop, hard_le, aligned16(llr, size_t(cols) * zc * sizeof(In)),
-      aligned16(hard, size_t(kb) * zc));
-  return int(cudaGetLastError());
+      exit_group != 0, hard_le, vec_in, vec_out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || exit_group <= 1 || num_iters == 0) return int(err);
+
+  // The group exit: as many CTAs as stay resident, launched cooperatively.
+  const void* kernel = reinterpret_cast<const void*>(group_exit_kernel<M>);
+  err = allow_max_smem<kGroupTag + M>(kernel);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, group_exit_kernel<M>,
+                                                        threads_for(zc), smem);
+  if (err != cudaSuccess) return int(err);
+  if (per_sm < 1) return int(cudaErrorCooperativeLaunchTooLarge);
+  const In* llr_in = static_cast<const In*>(llr);
+  unsigned char* r = static_cast<unsigned char*>(r_state);
+  void* args[] = {&llr_in, &hard, &ok, &sweeps, &r, &ctrl, &tb, &batch, &exit_group, &rows,
+                  &cols, &kb, &n_edges, &n_big, &zc, &num_iters, &sc, &hard_le, &vec_in,
+                  &vec_out};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(std::min(batch, per_sm * sms)),
+                                    dim3(threads_for(zc)), args, smem, stream);
+  return int(err);
 }
 
 template <int M>
@@ -697,7 +814,12 @@ int ldpc_layered_blocks_per_sm(int mode, int rows, int cols, int n_edges, int n_
 }
 
 // Fused path: decode `batch` codeblocks of (cols * zc) LLRs laid out
-// row-major, all sweeps in one launch, per-codeblock early exit.
+// row-major, all sweeps in one launch.  exit_group: 0 runs num_iters sweeps,
+// 1 stops each codeblock at its own zero syndrome, g > 1 (modes 0 and 1)
+// stops each group of g consecutive codeblocks together: every codeblock of
+// a group runs the sweeps after which all of them first meet parity (or
+// num_iters), by a second, cooperative launch (group_exit_kernel) that needs
+// ctrl: num_iters + 2 + 2 * ceil(batch / g) int32 zeroed by the caller.
 // mode 0 (f32): llr float32, r_state holds batch * ldpc_layered_state_bytes.
 // mode 1 (wire) / 2 (int8): llr int8, r_state unused (may be null).
 // Tables (device memory, int32): row_start (rows + 1), row_sync (rows; 1 =
@@ -709,19 +831,22 @@ int ldpc_layered_blocks_per_sm(int mode, int rows, int cols, int n_edges, int n_
 // Outputs: hard (batch, kb * zc) int8, ok (batch,) uint8, sweeps (batch,) int32.
 // Returns cudaGetLastError() after the launch (0 = launched).
 int ldpc_layered_decode(const void* llr, int mode, int8_t* hard, uint8_t* ok,
-                        int32_t* sweeps, void* r_state, const int32_t* row_start,
+                        int32_t* sweeps, void* r_state, int32_t* ctrl,
+                        const int32_t* row_start,
                         const int32_t* row_sync, const int32_t* edge_col,
                         const int32_t* edge_shift, int batch,
                         int rows, int cols, int kb, int n_edges, int n_big, int zc,
-                        int num_iters, float scale, int scale16, int early_stop,
+                        int num_iters, float scale, int scale16, int exit_group,
                         int hard_le, void* stream) {
   if (batch == 0) return 0;
-  if (zc < 1 || zc > kMaxZc) return int(cudaErrorInvalidValue);
+  if (zc < 1 || zc > kMaxZc || exit_group < 0 ||
+      (exit_group > 1 && (ctrl == nullptr || mode == kInt8)))
+    return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const Scale sc{scale, scale16};
   const Tables tb{row_start, row_sync, edge_col, edge_shift};
-#define LDPC_ARGS llr, hard, ok, sweeps, r_state, tb, batch, rows, cols, kb, n_edges, n_big, \
-    zc, num_iters, sc, early_stop, hard_le, s
+#define LDPC_ARGS llr, hard, ok, sweeps, r_state, ctrl, tb, batch, rows, cols, kb, n_edges, \
+    n_big, zc, num_iters, sc, exit_group, hard_le, s
   switch (mode) {
     case kF32: return launch<kF32>(LDPC_ARGS);
     case kWire: return launch<kWire>(LDPC_ARGS);

@@ -106,7 +106,8 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
            num_iters: int = DEFAULT_ITERS,
            scaling: float = DEFAULT_SCALING,
            schedule: str = "auto",
-           early_stop: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+           early_stop: bool = True,
+           exit_group: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode (B, cols*Zc) LLRs -> (hard message bits (B, kb*Zc) int8,
     parity_ok (B,) bool).
 
@@ -121,19 +122,20 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
         -> bit 1) on wire-domain inputs; bit-identical to the reference's
         avx2 decoder.
       * 'wire_auto': the main path's decode.  On a CUDA tensor the layered
-        kernel in wire mode (``decoder_cuda``; per-codeblock early stop); on
-        a CPU tensor 'layered_wire'.  Wire-domain values are integers by
-        contract (wire_quantize and the saturated dematch), so a float input
-        goes to the kernel as int8 after the ±64 load clamp.
+        kernel in wire mode (``decoder_cuda``, with the batch early stop of
+        'layered_wire'); on a CPU tensor 'layered_wire'.  Wire-domain values
+        are integers by contract (wire_quantize and the saturated dematch),
+        so a float input goes to the kernel as int8 after the ±64 load
+        clamp.
       * 'pallas': the kernel's f32 mode (``decode_pallas`` semantics: fixed
         sweeps, hard bits ``post < 0``, Zc >= 64 on the card); its plain
         version on a CPU tensor.
       * 'auto' (the default, as the reference's): the reference resolves
         it to 'layered' on every backend but the TPU.  On a CPU tensor it
         is 'layered'; on a CUDA tensor the
-        kernel's f32 mode with 'layered''s hard rule ``l <= 0`` at every
-        lifting size, exiting per codeblock (the batch exit of 'layered'
-        gives the same bits on every input measured: ROADMAP.md Queue C).
+        kernel's f32 mode with 'layered''s hard rule ``l <= 0`` and its
+        batch early stop at every lifting size (an exit per codeblock gives
+        other bits on waterfall input: ROADMAP.md Queue C).
       * 'flooding': every check row updated in parallel from one
         posterior per iteration, ``num_iters`` iterations (no early stop),
         f32; plain torch on any device.
@@ -141,11 +143,23 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
         (int8 wire load, saturating v2c, truncating scale, ±127 promotion)
         in int32 lanes, batch early stop; plain torch on any device.
 
+    ``exit_group`` makes the early stop's batch each run of that many
+    consecutive codeblocks (default: the whole call), as a ``vmap`` of the
+    reference's decode over TBs of that many codeblocks stops per TB.  On a
+    CUDA tensor 'auto' and 'wire_auto' take it in one kernel call; the other
+    schedules decode each group in a call of its own.
+
     A batch of no codeblocks (an empty shard) returns empty results.
     """
     if llrs.shape[0] == 0 and schedule not in _TPU_FORMS:
         from .decoder_cuda import empty_result
         return empty_result(bg, zc, llrs.device)[:2]
+    kernel = llrs.device.type != "cpu" and schedule in ("auto", "wire_auto")
+    if exit_group is not None and not kernel and llrs.shape[0] > exit_group:
+        parts = [decode(x, bg, zc, num_iters, scaling, schedule, early_stop)
+                 for x in torch.split(llrs, exit_group)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
     if schedule == "auto":
         if llrs.device.type == "cpu":
             schedule = "layered"
@@ -153,7 +167,8 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
             from .decoder_cuda import decode_layered
             hard, ok, _ = decode_layered(llrs.to(torch.float32).contiguous(),
                                          bg, zc, num_iters, scaling, wire=False,
-                                         early_stop=early_stop, strict=False)
+                                         early_stop=early_stop, strict=False,
+                                         exit_group=exit_group)
             return hard, ok
     if schedule in ("wire_auto", "pallas"):
         from .decoder_cuda import decode_layered
@@ -169,7 +184,8 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
             llrs = torch.clamp(llrs, -WIRE_LOAD_CLAMP, WIRE_LOAD_CLAMP
                                ).to(torch.int8)
         hard, ok, _ = decode_layered(llrs, bg, zc, num_iters, scaling,
-                                     wire=True, early_stop=early_stop)
+                                     wire=True, early_stop=early_stop,
+                                     exit_group=exit_group)
         return hard, ok
     if schedule == "flooding":
         return _decode_flooding(llrs, bg, zc, num_iters, scaling)

@@ -26,9 +26,13 @@ posterior, int8 messages, 13/16 normalisation, with its tile early exit
 Each wrapper launches the kernel for a CUDA tensor and raises if it cannot;
 for a CPU tensor it runs its ``*_plain`` twin, the same function in plain
 PyTorch, which the CPU tests and the on-card comparison use.
-``decode_layered``'s early stop is per codeblock in both (the JAX wire
-schedule stops per batch; on every input measured the two rules give the
-same bits, see ROADMAP.md Queue C).
+``decode_layered``'s early stop is the reference's batch rule over groups
+of ``exit_group`` consecutive codeblocks, in the kernel and its twin alike:
+the JAX ``layered`` / ``layered_wire`` schedules stop the whole batch of a
+call once every codeword meets parity (the default group), and under a
+``vmap`` over TBs each TB's codeblocks (a group of C).  A group of 1 is
+the exit per codeblock, which gives other bits on waterfall input
+(ROADMAP.md Queue C).
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ from .graph import get_graph
 
 KERNEL = "ldpc_layered"         # K1's launch counter (and the library)
 KERNEL_INT8 = "ldpc_int8"       # K2's launch counter
+# K1's second, cooperative launch when a group of codeblocks stops together
+# (counted apart: K1's own count is one per call of decode_layered).
+KERNEL_GROUP_EXIT = "ldpc_layered.group_exit"
 MODE_F32, MODE_WIRE, MODE_INT8 = 0, 1, 2   # the kernel's template modes
 INT8_CLAMP = 120  # decoder_pallas.LLR_CLAMP: K2's message clip
 MIN_ZC = 64      # decoder_pallas.MIN_ZC: the f32 and int8 modes' Zc floor
@@ -94,25 +101,37 @@ def decode_layered(llrs: torch.Tensor, bg: int, zc: int,
                    num_iters: int = DEFAULT_ITERS,
                    scaling: float = DEFAULT_SCALING,
                    wire: bool = False, early_stop: bool = False,
-                   strict: bool | None = None):
+                   strict: bool | None = None, exit_group: int | None = None):
     """Decode (B, cols*Zc) LLRs -> (hard (B, kb*Zc) int8, ok (B,) bool,
     sweeps (B,) int32 run per codeblock).
 
     ``wire=True`` takes int8 wire-domain LLRs, ``wire=False`` float32.
     ``strict`` picks the f32 mode's hard rule (``post < 0``, the default;
-    False: ``l <= 0``).  A CUDA tensor runs the kernel (or raises); a CPU
-    tensor runs the plain version."""
+    False: ``l <= 0``).  With ``early_stop`` every codeblock of a group of
+    ``exit_group`` consecutive ones (the whole batch by default) runs the
+    sweeps after which all of the group first meet parity, or ``num_iters``.
+    A CUDA tensor runs the kernel (or raises); a CPU tensor runs the plain
+    version."""
     _check_input(llrs, bg, zc, wire)
     strict = _strict(wire, strict)
+    group = _exit_group(llrs.shape[0], early_stop, exit_group)
     if llrs.shape[0] == 0:
         return empty_result(bg, zc, llrs.device)
     if llrs.device.type == "cpu":
         return decode_layered_plain(llrs, bg, zc, num_iters, scaling, wire,
-                                    early_stop, strict)
+                                    early_stop, strict, exit_group)
     out = _launch(llrs, MODE_WIRE if wire else MODE_F32, bg, zc, num_iters,
-                  scaling, early_stop, strict=strict)
+                  scaling, group, strict=strict)
     cuda_build.LAUNCHES[KERNEL] += 1
     return out
+
+
+def _exit_group(b: int, early_stop: bool, exit_group: int | None) -> int:
+    """The kernel's exit group: 0 without early stop, else the group size
+    (at most the batch)."""
+    if exit_group is not None and exit_group < 1:
+        raise ValueError(f"exit_group must be >= 1, got {exit_group}")
+    return min(exit_group or b, b) if early_stop else 0
 
 
 def empty_result(bg: int, zc: int, device: torch.device):
@@ -153,13 +172,14 @@ def _n_big(bg: int, zc: int) -> int:
     return int((_row_degrees(bg, zc) > SMALL_DEG).sum())
 
 
-def _launch(llrs, mode, bg, zc, num_iters, scaling, early_stop, b_tile=1,
-            strict=True):
+def _launch(llrs, mode, bg, zc, num_iters, scaling, exit_group, strict=True):
     """Run the kernel on a CUDA tensor: the fused path (all sweeps in one
-    launch, per-codeblock exit), or for K2 with ``early_stop`` and
-    ``b_tile`` > 1 the tiled path (one launch per sweep, per-tile exit).
-    ``strict=False`` gives the f32 mode the hard rule ``l <= 0``.
-    Returns (hard, ok, sweeps)."""
+    launch).  ``exit_group`` 0 runs every sweep, 1 stops each codeblock at
+    its own zero syndrome, g > 1 stops each group of g consecutive
+    codeblocks together: in K1's modes by a second, cooperative launch
+    (counted under ``KERNEL_GROUP_EXIT``), for K2 by the tiled path (one
+    launch per sweep, per-tile exit).  ``strict=False`` gives the f32 mode
+    the hard rule ``l <= 0``.  Returns (hard, ok, sweeps)."""
     _check_cuda(llrs, bg, zc, mode, scaling, strict)
     g = get_graph(bg, zc)
     dev = llrs.device
@@ -172,28 +192,35 @@ def _launch(llrs, mode, bg, zc, num_iters, scaling, early_stop, b_tile=1,
     graph = (g.rows, g.cols, g.kb, g.num_edges, n_big, zc)
     scale = (float(np.float32(scaling)), int(scaling * 65536))
     lib = _library()
-    tiled = mode == MODE_INT8 and early_stop and b_tile > 1 and num_iters > 0
+    grouped = exit_group > 1 and num_iters > 0
+    tiled = grouped and mode == MODE_INT8
     # Compressed R in device memory: the f32 mode's and the tiled path's.
     r_state = (torch.empty((b, lib.ldpc_layered_state_bytes(mode, g.rows, n_big,
                                                              zc)),
                            dtype=torch.uint8, device=dev)
                if tiled or mode == MODE_F32 else None)
+    ctrl = (torch.zeros((num_iters + 2 + 2 * -(-b // exit_group),),
+                        dtype=torch.int32, device=dev)
+            if grouped and not tiled else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if tiled:
             l_state = torch.empty((b, g.cols * zc), dtype=torch.int16, device=dev)
-            viol = torch.zeros((num_iters, b // b_tile), dtype=torch.int32,
+            viol = torch.zeros((num_iters, b // exit_group), dtype=torch.int32,
                                device=dev)
             rc = lib.ldpc_int8_decode_tiled(
                 llrs.data_ptr(), l_state.data_ptr(), r_state.data_ptr(),
                 viol.data_ptr(), hard.data_ptr(), ok.data_ptr(),
-                sweeps.data_ptr(), *tables, b, *graph, num_iters, b_tile, stream)
+                sweeps.data_ptr(), *tables, b, *graph, num_iters, exit_group,
+                stream)
         else:
             rc = lib.ldpc_layered_decode(
                 llrs.data_ptr(), mode, hard.data_ptr(), ok.data_ptr(),
                 sweeps.data_ptr(),
-                0 if r_state is None else r_state.data_ptr(), *tables,
-                b, *graph, num_iters, *scale, int(early_stop),
+                0 if r_state is None else r_state.data_ptr(),
+                0 if ctrl is None else ctrl.data_ptr(), *tables,
+                b, *graph, num_iters, *scale,
+                exit_group if ctrl is not None else min(exit_group, 1),
                 int(mode == MODE_F32 and not strict), stream)
     if rc != 0:
         smem = lib.ldpc_layered_smem_bytes(mode, g.rows, g.cols, g.num_edges,
@@ -201,6 +228,8 @@ def _launch(llrs, mode, bg, zc, num_iters, scaling, early_stop, b_tile=1,
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {rc} (mode "
                            f"{mode}, BG{bg} Zc={zc}, {smem} B shared memory "
                            f"per block{', tiled' if tiled else ''})")
+    if ctrl is not None:
+        cuda_build.LAUNCHES[KERNEL_GROUP_EXIT] += 1
     return hard, ok, sweeps
 
 
@@ -215,7 +244,7 @@ def _library() -> ctypes.CDLL:
     lib.ldpc_layered_blocks_per_sm.argtypes = [i32] * 6
     lib.ldpc_layered_blocks_per_sm.restype = i32
     lib.ldpc_layered_decode.argtypes = (
-        [ptr, i32] + [ptr] * 8 + [i32] * 8 + [ctypes.c_float, i32, i32, i32, ptr])
+        [ptr, i32] + [ptr] * 9 + [i32] * 8 + [ctypes.c_float, i32, i32, i32, ptr])
     lib.ldpc_layered_decode.restype = i32
     lib.ldpc_int8_decode_tiled.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
     lib.ldpc_int8_decode_tiled.restype = i32
@@ -263,26 +292,26 @@ def decode_layered_plain(llrs: torch.Tensor, bg: int, zc: int,
                          num_iters: int = DEFAULT_ITERS,
                          scaling: float = DEFAULT_SCALING,
                          wire: bool = False, early_stop: bool = False,
-                         strict: bool | None = None):
+                         strict: bool | None = None,
+                         exit_group: int | None = None):
     """The kernel's function in plain PyTorch (any device).
 
     f32 mode follows ``_make_kernel`` (its running min / second-min with the
     ``a == m1`` rule gives the same messages as the argmin form used here),
     with hard bits ``post < 0``, or ``l <= 0`` when ``strict`` is False;
-    wire mode follows ``layered_wire``.  With ``early_stop`` a codeblock
-    stops once its own syndrome is zero, as each CTA of the kernel does."""
+    wire mode follows ``layered_wire``.  With ``early_stop`` each group of
+    ``exit_group`` consecutive codeblocks (the whole batch by default) stops
+    once all of them meet parity (``layered`` / ``layered_wire``'s rule for
+    one call)."""
     _check_input(llrs, bg, zc, wire)
     strict = _strict(wire, strict)
     plan = get_decode_plan(bg, zc)
     l, r_msgs = init_state(llrs, plan, wire)
     b = llrs.shape[0]
+    group = _exit_group(b, early_stop, exit_group)
     sweeps = torch.zeros((b,), dtype=torch.int32, device=llrs.device)
     active = torch.arange(b, device=llrs.device)
     for _ in range(num_iters):
-        if not early_stop:
-            sweep(l, r_msgs, bg, zc, scaling, wire)
-            sweeps += 1
-            continue
         if active.numel() == 0:
             break
         if active.numel() == b:
@@ -293,8 +322,12 @@ def decode_layered_plain(llrs: torch.Tensor, bg: int, zc: int,
             sweep(l_a, r_a, bg, zc, scaling, wire)
             l[active], r_msgs[active] = l_a, r_a
         sweeps[active] += 1
-        done = check_parity(hard_decision(l_a, strict), bg, zc)
-        active = active[~done]
+        if group:
+            done = check_parity(hard_decision(l_a, strict), bg, zc)
+            still_open = torch.zeros((-(-b // group),), dtype=torch.bool,
+                                     device=llrs.device)
+            still_open[active[~done] // group] = True
+            active = active[still_open[active // group]]
     hard = hard_decision(l, strict)
     return hard[:, :plan.kb * zc], check_parity(hard, bg, zc), sweeps
 
@@ -409,7 +442,7 @@ def decode_int8(llrs: torch.Tensor, bg: int, zc: int,
         return decode_int8_plain(x, bg, zc, num_iters, b_tile, early_stop,
                                  with_sweeps=with_sweeps)
     hard, ok, sweeps = _launch(x, MODE_INT8, bg, zc, num_iters, DEFAULT_SCALING,
-                               early_stop, b_tile)
+                               b_tile if early_stop else 0)
     cuda_build.LAUNCHES[KERNEL_INT8] += 1
     return (hard, ok, sweeps) if with_sweeps else (hard, ok)
 

@@ -19,6 +19,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -177,7 +178,8 @@ def test_wire_plain_early_stop_per_codeblock():
     msgs, llr = _noisy_llrs(bg, zc, 6, snr_db=2.0, seed=9)
     q = torch.as_tensor(_wire(llr))
     hard, ok, sweeps = decoder_cuda.decode_layered(q, bg, zc, num_iters=8,
-                                                   wire=True, early_stop=True)
+                                                   wire=True, early_stop=True,
+                                                   exit_group=1)
     assert ok.all()
     np.testing.assert_array_equal(hard.numpy(), msgs)
     assert sweeps.min() >= 1 and sweeps.max() <= 8
@@ -189,8 +191,8 @@ def test_wire_plain_early_stop_per_codeblock():
 
 
 def test_wire_early_stop_per_codeblock_matches_batch_rule():
-    """The card's wire_auto early stop is per codeblock (each CTA stops at
-    its own zero syndrome, which decode_layered_plain mirrors); the JAX
+    """The exit per codeblock (exit_group 1: each CTA stops at its own zero
+    syndrome, which decode_layered_plain mirrors); the JAX
     layered_wire schedule stops the whole batch once every codeword meets
     parity, so a codeblock that converged early keeps sweeping there.  On
     192 codeblocks of BG1 Zc=224 wire input (rate 0.5 after puncturing the
@@ -213,11 +215,108 @@ def test_wire_early_stop_per_codeblock_matches_batch_rule():
     hj, okj = jdec.decode(jnp.asarray(q.astype(np.float32)), bg, zc,
                           num_iters=6, schedule="layered_wire", early_stop=True)
     hard, ok, sweeps = decoder_cuda.decode_layered_plain(
-        torch.as_tensor(q), bg, zc, num_iters=6, wire=True, early_stop=True)
+        torch.as_tensor(q), bg, zc, num_iters=6, wire=True, early_stop=True,
+        exit_group=1)
     assert len(np.unique(sweeps.numpy())) >= 3      # the rules can differ
     assert not np.asarray(okj).all()                # the batch runs 6 sweeps
     np.testing.assert_array_equal(hard.numpy(), np.asarray(hj))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(okj))
+
+
+def _waterfall_input(rows):
+    """Codeblocks ``rows`` of the f32 decoder input of the BLER sweep's MCS
+    24 point at 16 dB (52 PRB, 64 TBs, tools/bler_sweep.py's draws from
+    default_rng(0)): codeblock 121 never meets parity in 8 sweeps, 124 meets
+    it after 7 and misses it after 8."""
+    from srsran_edgeric_5g_tpu_torch.ran import tbs as tbs_mod
+    from srsran_edgeric_5g_tpu_torch.tools import bler_sweep
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc import segmenter
+    rng = np.random.default_rng(bler_sweep.SEED)
+    for mcs_idx, snrs in bler_sweep.CASES.items():
+        for snr in snrs:
+            if (mcs_idx, snr) == (24, 16.0):
+                seg, _, full = bler_sweep.decoder_input(24, 16.0, 64, rng,
+                                                        device="cpu")
+                return seg, full[rows].contiguous()
+            mcs = tbs_mod.mcs_config(mcs_idx, "qam64")
+            nre = tbs_mod.nof_re(52, 12, 12)
+            a = tbs_mod.tbs(nre, mcs.target_rate, mcs.qm)
+            seg = segmenter.get_segment_plan(
+                a, segmenter.select_base_graph(a, mcs.target_rate), nre * mcs.qm,
+                mcs.qm)
+            rng.integers(0, 2, (64, a), dtype=np.int8)      # the point's draws
+            shape = (64 * seg.c, seg.e[0] // mcs.qm)
+            rng.normal(size=shape)
+            rng.normal(size=shape)
+
+
+# Two groups of two: the waterfall pair, then two codeblocks that meet
+# parity after 6 sweeps.
+GROUPS = [121, 124, 39, 41]
+
+
+def test_per_codeblock_exit_misses_the_batch_rule_on_waterfall_input():
+    """On waterfall input a codeblock can meet parity after f sweeps and miss
+    it after more: exiting per codeblock (exit_group 1) then gives another ok
+    than the reference's batch rule, which runs every codeblock until all
+    meet parity (here: all 8 sweeps).  decode_layered's early stop, which
+    decode("auto") and decode("wire_auto") take on the card, equals the
+    reference's "layered" schedule."""
+    import jax
+    import jax.numpy as jnp
+    from srsran_edgeric_5g_tpu.ops.ldpc import decoder as jdec
+    seg, x = _waterfall_input([121, 124])
+    hj, okj = jax.jit(lambda v: jdec.decode(v, seg.bg, seg.zc, num_iters=8,
+                                            schedule="layered"))(jnp.asarray(x.numpy()))
+    per_cb = decoder_cuda.decode_layered_plain(x, seg.bg, seg.zc, 8, wire=False,
+                                               early_stop=True, strict=False,
+                                               exit_group=1)
+    assert per_cb[2].tolist() == [8, 7] and per_cb[1].tolist() == [False, True]
+    hard, ok, sweeps = decoder_cuda.decode_layered_plain(
+        x, seg.bg, seg.zc, 8, wire=False, early_stop=True, strict=False)
+    assert sweeps.tolist() == [8, 8] and ok.tolist() == [False, False]
+    np.testing.assert_array_equal(hard.numpy(), np.asarray(hj))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(okj))
+    # Without early stop the batch rule is the fixed-sweep decode.
+    fixed = decoder_cuda.decode_layered_plain(x, seg.bg, seg.zc, 8, wire=False,
+                                              strict=False)
+    assert all(torch.equal(a, b) for a, b in zip(fixed, (hard, ok, sweeps)))
+
+
+@pytest.mark.parametrize("wire", [False, True])
+def test_group_exit_equals_the_reference_vmap_over_tbs(wire):
+    """exit_group 2 equals a vmap of the JAX decode over groups of two
+    codeblocks (the reference's exit per TB), and differs from the whole
+    batch as one group: f32 on the waterfall codeblocks (the group that
+    holds the waterfall pair runs all 8 sweeps, the other stops after 6),
+    wire on BG2 Zc=128 codeblocks at 2 dB.  decode() with exit_group on the
+    CPU (a call per group) gives the same."""
+    import jax
+    import jax.numpy as jnp
+    from srsran_edgeric_5g_tpu.ops.ldpc import decoder as jdec
+    if wire:
+        seg = types.SimpleNamespace(bg=2, zc=128)
+        x = torch.as_tensor(_wire(_noisy_llrs(2, 128, 8, snr_db=2.0, seed=2)[1]))
+        want_sweeps = [2, 2, 3, 3, 2, 2, 3, 3]
+    else:
+        seg, x = _waterfall_input(GROUPS)
+        want_sweeps = [8, 8, 6, 6]
+    b = x.shape[0]
+    sched = "layered_wire" if wire else "layered"
+    hj, okj = jax.jit(jax.vmap(lambda v: jdec.decode(v, seg.bg, seg.zc, num_iters=8,
+                                                     schedule=sched)))(
+        jnp.asarray(x.numpy().astype(np.float32).reshape(b // 2, 2, -1)))
+    hard, ok, sweeps = decoder_cuda.decode_layered_plain(
+        x, seg.bg, seg.zc, 8, wire=wire, early_stop=True, strict=False, exit_group=2)
+    np.testing.assert_array_equal(hard.numpy(), np.asarray(hj).reshape(b, -1))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(okj).reshape(b))
+    assert sweeps.tolist() == want_sweeps
+    whole = decoder_cuda.decode_layered_plain(x, seg.bg, seg.zc, 8, wire=wire,
+                                              early_stop=True, strict=False)
+    assert whole[2].tolist() == [max(want_sweeps)] * b
+    got = decoder.decode(x, seg.bg, seg.zc, num_iters=8,
+                         schedule="wire_auto" if wire else "auto", exit_group=2)
+    assert torch.equal(got[0], hard) and torch.equal(got[1], ok)
 
 
 def test_cuda_support_rule():
@@ -396,7 +495,7 @@ def test_wire_kernel_matches_plain_at_main_path_widths(cuda_device, zc):
 @pytest.mark.parametrize("bg,zc", [(2, 40), (1, 15), (2, 2)])
 def test_wire_auto_small_lifting_size_on_card(cuda_device, bg, zc):
     """decode(schedule="wire_auto") on a CUDA tensor decodes at Zc < 64,
-    bit-equal to its plain twin on the CPU (per-codeblock early stop); the
+    bit-equal to its plain twin on the CPU (the batch early stop); the
     f32 mode and K2 keep the Zc >= 64 floor and raise."""
     _, llr = _noisy_llrs(bg, zc, 8, snr_db=2.0, seed=zc)
     q = torch.as_tensor(_wire(llr))
@@ -410,3 +509,53 @@ def test_wire_auto_small_lifting_size_on_card(cuda_device, bg, zc):
     with pytest.raises(ValueError):
         decoder_cuda.decode_int8(torch.as_tensor(llr, device=cuda_device), bg, zc,
                                  b_tile=1)
+
+
+@pytest.mark.cuda
+def test_group_exit_kernel_on_waterfall_input(cuda_device):
+    """The kernel's group exit on the waterfall codeblocks where the
+    per-codeblock exit misses the batch rule: equal to the plain version in
+    one group and in groups of two (one more, cooperative launch each), and
+    decode("auto") on the card equals "layered" on the CPU."""
+    seg, x = _waterfall_input(GROUPS)
+    xc = x.to(cuda_device)
+    for group in (None, 2):
+        before = cuda_build.LAUNCHES[decoder_cuda.KERNEL_GROUP_EXIT]
+        got = decoder_cuda.decode_layered(xc, seg.bg, seg.zc, 8, wire=False,
+                                          early_stop=True, strict=False,
+                                          exit_group=group)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES[decoder_cuda.KERNEL_GROUP_EXIT] == before + 1
+        want = decoder_cuda.decode_layered_plain(x, seg.bg, seg.zc, 8, wire=False,
+                                                 early_stop=True, strict=False,
+                                                 exit_group=group)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    auto = decoder.decode(xc, seg.bg, seg.zc, num_iters=8, schedule="auto")
+    ref = decoder.decode(x, seg.bg, seg.zc, num_iters=8, schedule="layered")
+    assert torch.equal(auto[0].cpu(), ref[0]) and torch.equal(auto[1].cpu(), ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [True, False])
+@pytest.mark.parametrize("exit_group", [None, 1, 7])
+@pytest.mark.parametrize("snr_db,b", [(1.0, 16), (1.8, 3000), (4.0, 2048)])
+def test_group_exit_kernel_matches_plain(cuda_device, wire, exit_group, snr_db, b):
+    """The group exit on the card == its plain version (hard bits, ok,
+    sweeps): a small batch, a batch larger than the resident CTAs at the
+    waterfall (codeblocks decoded again by CTAs that take several; groups of
+    7 leave a short last one) and one where all meet parity after a few
+    sweeps."""
+    _, llr = _noisy_llrs(1, 224, b, snr_db=snr_db, seed=b)
+    x = torch.as_tensor(_wire(llr) if wire else llr, device=cuda_device)
+    for num_iters in (1, 6):
+        got = decoder_cuda.decode_layered(x, 1, 224, num_iters, wire=wire,
+                                          early_stop=True, strict=False,
+                                          exit_group=exit_group)
+        want = decoder_cuda.decode_layered_plain(x, 1, 224, num_iters, wire=wire,
+                                                 early_stop=True, strict=False,
+                                                 exit_group=exit_group)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if exit_group is None:
+            assert len(set(got[2].tolist())) == 1

@@ -142,9 +142,10 @@ def test_auto_equals_reference_layered_early_stop_granularity(case):
     ha, oka = tdec.decode(full, seg.bg, seg.zc, num_iters=6, schedule="auto")
     np.testing.assert_array_equal(ha.numpy(), np.asarray(hj))
     np.testing.assert_array_equal(oka.numpy(), np.asarray(okj))
-    # The card's rules: per-codeblock exit, l <= 0.
+    # The exit per codeblock (exit_group 1), l <= 0.
     hp, okp, sweeps = tdc.decode_layered_plain(full, seg.bg, seg.zc, 6, wire=False,
-                                               early_stop=True, strict=False)
+                                               early_stop=True, strict=False,
+                                               exit_group=1)
     np.testing.assert_array_equal(hp.numpy(), np.asarray(hj))
     np.testing.assert_array_equal(okp.numpy(), np.asarray(okj))
     assert len(set(sweeps.tolist())) >= 2          # the two exits could differ
