@@ -25,7 +25,10 @@ Phases (any failure exits non-zero):
   5. timing  — the DL+UL step chained over TIMED_STEPS steps; a per-stage
                breakdown; the kernel alone (early stop, and fixed 0, 1 and 6
                sweeps: the slope is the cost of a sweep), its resident CTAs
-               per SM, its plain version, its bound.
+               per SM, its plain version, its bound, and the sweeps its
+               launches ran (executed_sweeps: the group exit repeats none, so
+               they are the sum of the sweeps per codeblock; checked here and
+               on every kernel_time path, the 4x4 data plane among them).
   6. full_cell — the full gNB slot (bench.py's bench_full_cell) at
                FullCellConfig() (20 MHz, 106 PRB, 4 UEs, 64QAM) and S = 256:
                UE UL generated once, 25 dB AWGN, one DL+UL step with the
@@ -150,9 +153,15 @@ Phases (any failure exits non-zero):
                1e-4 of the peak), ms per slot of both in turns and the
                collectives per step, the device profile of both steps;
                K1 against its plain version on one
-               rank's codeblock share, and on no codeblocks (no launch);
-               then parallel.multihost as 2 processes on the card over gloo
-               (MULTIHOST_OK, seconds per step beside world 1's).
+               rank's codeblock share, and on no codeblocks (no launch); the
+               early stop over the mesh's codeblock groups on waterfall input
+               (multihost.exit_inputs: bler_sweep's MCS 24, 16 dB pairs and
+               _ul_back at 16.5 dB) equal to mesh=None; then
+               parallel.multihost as 2 processes on the card over gloo
+               (MULTIHOST_OK, seconds per step beside world 1's), with the
+               exit program: one waterfall codeblock per rank through K1 and
+               the all-reduced rounds, a rank with none, and _ul_back on a
+               2-rank 'cb' mesh, each equal to mesh=None (scale_out_exit).
  27. validation — the validation entry points (srsran_edgeric_5g_tpu_torch/
                tools/), each through its own functions: bler_awgn
                (bler_sweep's BLER_R1.md grid, 15 points x VAL_BLOCKS TBs, the
@@ -541,9 +550,8 @@ def phase_timing(sp, dec, dev, ctx):
     bg, zc = seg.bg, seg.zc
     from srsran_edgeric_5g_tpu_torch.ops.ldpc.graph import get_graph
     g = get_graph(bg, zc)
-    # The path's decode: wire mode with the batch exit.
-    _, _, sweeps = dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
-                                      early_stop=True)
+    # The path's decode: wire mode with the batch exit; the sweeps K1 ran.
+    sweeps, executed = k1_executed(dec, full, bg, zc)
     ms = cuda_ms(lambda: dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
                                             early_stop=True), 20)
     ms_cb = cuda_ms(lambda: dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
@@ -565,13 +573,50 @@ def phase_timing(sp, dec, dev, ctx):
               (("f32", dec.MODE_F32), ("wire", dec.MODE_WIRE), ("int8", dec.MODE_INT8))}
     emit("kernel_time", kernel="ldpc_layered", codeblocks=full.shape[0],
          blocks_per_sm=blocks,
-         sweeps_total=total_sweeps, mean_sweeps=total_sweeps / full.shape[0],
-         wire_batch_exit_ms=ms, wire_early_stop_ms=ms_cb, wire_fixed_0_ms=fixed[0],
+         sweeps_total=total_sweeps, executed_sweeps=executed,
+         mean_sweeps=total_sweeps / full.shape[0],
+         wire_batch_exit_ms=ms, device_ms_by_kernel=k1_split(dec, full, bg, zc),
+         wire_early_stop_ms=ms_cb, wire_fixed_0_ms=fixed[0],
          wire_fixed_1_ms=fixed[1], wire_fixed_6_ms=fixed[NUM_ITERS],
          f32_fixed_6_ms=ms_f32, plain_wire_batch_exit_ms=plain_ms, bytes=n_bytes,
          bound_ms=bound_ms, bound_by=bound_by)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                slice_ms_per_slot=slot_ms, slice_breakdown=breakdown)
+                executed_sweeps=executed, slice_ms_per_slot=slot_ms,
+                slice_breakdown=breakdown)
+
+
+def k1_executed(dec, full, bg, zc):
+    """K1 as the path runs it (wire mode, the batch exit) on ``full``: its
+    sweeps per codeblock and the sweeps its launches ran (the device's
+    counter), which must be their sum: no codeblock decoded twice."""
+    import torch
+    dec.reset_executed_sweeps()
+    _, _, sweeps = dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True, early_stop=True)
+    torch.cuda.synchronize()
+    executed = dec.executed_sweeps(full.device)
+    check(executed == int(sweeps.sum()),
+          f"K1 ran {executed} sweeps for {int(sweeps.sum())} the batch rule takes")
+    return sweeps, executed
+
+
+def k1_split(dec, full, bg, zc, n_prof: int = 5) -> dict:
+    """Device ms per call of the path's decode (wire mode, the batch exit)
+    by kernel, from torch.profiler: the fused pass (layered_kernel), the
+    group exit's rounds (resume_kernel, num_iters launches), the rest
+    (zeroing its bookkeeping)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True, early_stop=True)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = KERNEL_NAME.search(e.name)
+            name = m.group(1) if m else "other"
+            out[name] = out.get(name, 0.0) + e.time_range.end - e.time_range.start
+    return {k: v / n_prof / 1e3 for k, v in out.items()}
 
 
 def kernel_bound(g, zc, total_sweeps, n_bytes):
@@ -968,8 +1013,7 @@ def phase_path_kernel(dec, path, ctx):
              early_stop=early_stop, exit_group=group, codeblocks=full.shape[0],
              equal=same, ok=int(k[1].sum()), mean_sweeps=float(k[2].float().mean()))
     g = get_graph(bg, zc)
-    _, _, sweeps = dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
-                                      early_stop=True)
+    sweeps, executed = k1_executed(dec, full, bg, zc)
     ms = cuda_ms(lambda: dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
                                             early_stop=True), 20)
     ms_cb = cuda_ms(lambda: dec.decode_layered(full, bg, zc, NUM_ITERS, wire=True,
@@ -984,14 +1028,17 @@ def phase_path_kernel(dec, path, ctx):
     bound_ms, bound_by = kernel_bound(g, zc, total_sweeps, n_bytes)
     emit("kernel_time", kernel=dec.KERNEL, path=path, bg=bg, zc=zc,
          codeblocks=full.shape[0], blocks_per_sm=dec.blocks_per_sm(dec.MODE_WIRE, bg, zc),
-         sweeps_total=total_sweeps, mean_sweeps=total_sweeps / full.shape[0],
-         wire_batch_exit_ms=ms, wire_early_stop_ms=ms_cb, wire_fixed_0_ms=fixed[0],
+         sweeps_total=total_sweeps, executed_sweeps=executed,
+         mean_sweeps=total_sweeps / full.shape[0],
+         wire_batch_exit_ms=ms, device_ms_by_kernel=k1_split(dec, full, bg, zc),
+         wire_early_stop_ms=ms_cb, wire_fixed_0_ms=fixed[0],
          wire_fixed_1_ms=fixed[1], wire_fixed_6_ms=fixed[NUM_ITERS],
          plain_wire_batch_exit_ms=plain_ms, bytes=n_bytes, bound_ms=bound_ms,
          bound_by=bound_by)
     return dict(launches=ctx["launches"].get(dec.KERNEL, 0),
                 group_exit_launches=ctx["launches"].get(dec.KERNEL_GROUP_EXIT, 0),
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, sweeps=total_sweeps, executed_sweeps=executed)
 
 
 def tools_shape_llrs(encoder, dev, snr_db, gen):
@@ -2042,7 +2089,7 @@ def phase_sched_rach_bcch(cuda_build, dec, dev):
 
 
 KERNEL_NAME = re.compile(
-    r"(layered_kernel|group_exit_kernel|int8_tiled_sweep_kernel)(?:ILi(\d)E)?")
+    r"(layered_kernel|resume_kernel|int8_tiled_sweep_kernel)(?:ILi(\d)E)?")
 
 
 def phase_multi_cell(sp, cuda_build, dec, dev, tm):
@@ -2330,6 +2377,7 @@ def phase_scale_out(fcm, sp, cuda_build, dec, dev):
     import os
     import tempfile
     import types
+    import numpy as np
     import torch
     import torch.distributed as dist
     from srsran_edgeric_5g_tpu_torch.ops import ofdm
@@ -2419,18 +2467,26 @@ def phase_scale_out(fcm, sp, cuda_build, dec, dev):
         check(tuple(hard.shape) == (0, k_bits) and ok.numel() == 0
               and sweeps.numel() == 0 and not cuda_build.LAUNCHES,
               f"K1 on 0 codeblocks: {tuple(hard.shape)} {dict(cuda_build.LAUNCHES)}")
+        # The early stop over the mesh's codeblock groups on waterfall input
+        # (one rank: groups of one, no collective) against mesh=None.
+        exit_in = mh.exit_inputs()
+        world1_exit = exit_against_none(exit_in, dev, [mh.exit_step(exit_in, 1, dev)],
+                                        whole=False)
     finally:
         dist.destroy_process_group()
 
-    # The worker as 2 processes on this card over gloo.
+    # The worker as 2 processes on this card over gloo, with the early stop
+    # over both ranks on the exit program's waterfall inputs.
     env = dict(os.environ, LOCAL_WORLD_SIZE="2")
     env.pop("LOCAL_RANK", None)
     init = f"file://{os.path.join(store, 'gloo2')}"
+    np.savez(os.path.join(store, "exit.npz"), **exit_in)
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "srsran_edgeric_5g_tpu_torch.parallel.multihost",
          str(r), "2", init, "--device", "cuda", "--backend", "gloo",
-         "--programs", "cell,carrier", "--repeat", "3"],
+         "--programs", "cell,carrier,exit", "--repeat", "3",
+         "--inputs", os.path.join(store, "exit.npz"), "--out", store],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
         for r in range(2)]
     outs = []
@@ -2449,14 +2505,65 @@ def phase_scale_out(fcm, sp, cuda_build, dec, dev):
     check(bool(line), "multihost over gloo printed no MULTIHOST_OK")
     print(line, flush=True)
     gloo = json.loads(line[line.index("{"):])
+    gloo_exit = exit_against_none(exit_in, dev, [
+        {k[len("exit/"):]: v for k, v in np.load(os.path.join(store, f"rank{r}.npz")).items()
+         if k.startswith("exit/")} for r in range(2)])
     emit("scale_out_multihost", ranks=2, backend="gloo", device="cuda",
          wall_seconds=time.perf_counter() - t0,
          seconds_per_step={k: v["seconds"] for k, v in gloo.items()},
          world1_nccl_seconds_per_step={k: v["seconds"] for k, v in world1.items()},
          collectives={k: v["collectives"] for k, v in gloo.items()})
+    emit("scale_out_exit", world1_nccl=world1_exit, gloo_2=gloo_exit)
     shutil.rmtree(store, ignore_errors=True)
     emit("scale_out", seconds=time.perf_counter() - t_phase)
     return per_path
+
+
+def exit_against_none(inputs, dev, parts, whole=True):
+    """The exit program's results (``multihost.exit_step``) against the
+    same decodes and _ul_back with mesh=None on the card.  ``parts``: every
+    rank's outputs, their decode blocks concatenated in rank order; with
+    ``whole`` False (a world of 1) each decode case is held to the first
+    block of its bounds, the one the rank took.  Returns each case's size,
+    its ok and every rank's K1 launches."""
+    import numpy as np
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder
+    from srsran_edgeric_5g_tpu_torch.parallel import slot_pipeline as sp
+    joined = lambda key: np.concatenate([p[key] for p in parts])
+    out = {}
+    for name in ("auto", "wire", "empty"):
+        x = torch.as_tensor(inputs[f"{name}/llrs"], device=dev)
+        b = inputs[f"{name}/bounds"]
+        if not whole:
+            x = x[b[0]:b[1]]
+        bg, zc, n = (int(v) for v in inputs[f"{name}/meta"])
+        sched = "wire_auto" if x.dtype == torch.int8 else "auto"
+        hard, ok = decoder.decode(x, bg, zc, n, schedule=sched)
+        plain = decoder.decode(x.cpu(), bg, zc, n, schedule=sched)
+        check(torch.equal(hard.cpu(), plain[0]) and torch.equal(ok.cpu(), plain[1]),
+              f"exit {name}: K1 != plain on the whole batch")
+        check(np.array_equal(joined(f"{name}/hard"), plain[0].numpy())
+              and np.array_equal(joined(f"{name}/ok"), plain[1].numpy()),
+              f"exit {name}: the ranks' decode != mesh=None")
+        out[name] = dict(codeblocks=int(x.shape[0]), ok=plain[1].tolist(),
+                         launches=[int(p[f"{name}/launches"]) for p in parts])
+    check(len(parts) == 1 or out["empty"]["launches"][1] == 0,
+          f"exit: a rank with no codeblocks launched K1 {out['empty']['launches']}")
+    cell = sp.CellConfig(**json.loads(str(inputs["path/cell"])))
+    llr = torch.as_tensor(inputs["path/llr"], device=dev)
+    n = int(inputs["path/num_iters"])
+    pay, tb_ok, _ = sp._ul_back(llr, cell, num_iters=n)
+    seg, _ = sp._plans(cell)
+    hard, ok = decoder.decode(sp._decoder_input(llr, cell), seg.bg, seg.zc, n,
+                              schedule="wire_auto")
+    check(all(np.array_equal(p["path/payload"], pay.cpu().numpy())
+              and np.array_equal(p["path/tb_ok"], tb_ok.cpu().numpy()) for p in parts)
+          and np.array_equal(joined("path/hard"), hard.cpu().numpy())
+          and np.array_equal(joined("path/ok"), ok.cpu().numpy()),
+          "exit path: _ul_back on the mesh != mesh=None")
+    out["path"] = dict(tbs=int(llr.shape[0]), tb_ok=tb_ok.tolist(), ok=ok.tolist())
+    return out
 
 
 def k1_on(dec, x, bg, zc, num_iters, wire, strict=False, group=None):
@@ -2736,7 +2843,7 @@ def phase_validation(cuda_build, dec, dev):
 
 
 def kernel_name(line: str):
-    """layered_kernel<M> or group_exit_kernel<M> (M: 0 f32, 1 wire, 2 int8)
+    """layered_kernel<M> or resume_kernel<M> (M: 0 f32, 1 wire, 2 int8)
     or int8_tiled_sweep_kernel from a line naming a mangled kernel, else
     None."""
     m = KERNEL_NAME.search(line)

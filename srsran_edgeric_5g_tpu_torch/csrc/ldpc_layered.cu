@@ -74,24 +74,40 @@
 // Early exit.  The Pallas kernels stop a whole tile of b_tile codeblocks once
 // every codeword of the tile meets parity (after at least one sweep); the
 // schedules that K1 computes off the TPU ("layered", "layered_wire") stop the
-// whole batch of a call once every codeword meets parity, and under the
-// reference's vmap over TBs each TB's codeblocks.  K1 takes the group size:
-// exit_group g stops each group of g consecutive codeblocks together.
+// whole batch of a call once every codeword meets parity, under the
+// reference's vmap over TBs each TB's codeblocks, and under its sharding
+// every codeblock on every device (one while_loop over the global batch).
+// K1 takes the group size: exit_group g stops each group of g consecutive
+// codeblocks together; the wrapper extends a group over ranks.
 //  * Fused path (ldpc_layered_decode): all sweeps in one launch, each CTA
 //    decides for itself — g == 1, and with g == 0 the fixed-sweep decode.
 //    After each sweep the CTA evaluates the syndrome of its hard bits
 //    (__syncthreads_or over the row parities); the same syndrome gives the
 //    `ok` output.
-//  * Group exit (g > 1, modes 0 and 1): the fused path's per-codeblock exit,
-//    then group_exit_kernel decodes again, from the LLRs, every codeblock
-//    that stopped before its group would have.  A codeblock that met parity
-//    after f sweeps can miss it after more (measured on waterfall input,
-//    bler_sweep MCS 24 at 16 dB), so the per-codeblock exit alone does not
-//    give the group rule's bits.
+//  * Group exit (modes 0 and 1).  The batch rule runs every codeblock of a
+//    group s* sweeps, the first n at which all of them meet parity; it is at
+//    least the largest own exit f_i of the group, and a codeblock that met
+//    parity after f_i sweeps can miss it after more (waterfall input,
+//    bler_sweep MCS 24 at 16 dB), so its bits are those after s* sweeps.
+//    What bounds a design here is repeated work: decoding a codeblock again
+//    from its LLRs (as an earlier cooperative kernel did) repeats its first f_i
+//    sweeps, and restarting a group on each missed round repeats them all.
+//    So no sweep runs twice: the fused launch posts each codeblock's own
+//    exit to its group's target (atomicMax) and, while the target it reads
+//    is above its own, sweeps on in shared memory; a codeblock that still
+//    stops before num_iters keeps its L (and, in wire mode, its compressed R:
+//    57,344 B at BG1 Zc=224; the f32 mode's R lives in r_state) in a device
+//    scratch.  Round 0 of resume_kernel brings every codeblock to its
+//    group's target from that state (sweep<M, false>, never the first-sweep
+//    form), round r one more sweep for the groups where a codeblock missed
+//    parity in round r - 1; CTAs with nothing to do return at once, and
+//    state goes back to the scratch only where another round can follow.
+//    Every codeblock ends with exactly s* sweeps; `executed` counts them.
+//    Over one rank the rounds are num_iters launches with no host sync;
+//    over several the wrapper all-reduces the targets and each round's
+//    flags between launches (decoder_cuda._rounds_over_ranks).
 //  * Tiled path (ldpc_int8_decode_tiled, K2 with early stop and b_tile > 1):
-//    the CTAs of a tile are not guaranteed to be resident together, so they
-//    cannot wait for each other.
-//    One launch runs one sweep: L and R live in device memory between
+//    one launch runs one sweep: L and R live in device memory between
 //    launches; each CTA that ends a sweep with a violated syndrome marks its
 //    tile in viol[sweep][tile]; a CTA whose tile had no violation after the
 //    previous sweep returns at once.  num_iters launches, no host sync.  Each
@@ -110,18 +126,15 @@
 // address, rebuilding the old message, bookkeeping), and almost all of them
 // are integer instructions, which an SM runs on 64 INT32 lanes per clock
 // against the 128 lanes the 32-bit rate assumes; that, more than latency, is
-// what stands between it and the floor.  The tiled path adds the L and R
-// round trip through device memory per sweep.
+// what stands between it and the floor.  The group exit adds the kept
+// state's round trip (at most 3 x 117 MB on the main path, 0.1 ms of HBM
+// time) and the tiled path L and R through device memory per sweep.
 
-#include <algorithm>
 #include <cstdint>
 #include <mutex>
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr int kF32 = 0, kWire = 1, kInt8 = 2;
 
@@ -176,10 +189,11 @@ __host__ __device__ inline size_t r_bytes(int rows, int n_big, int zc) {
 }
 
 // Shared memory of one CTA: the edge table (one word per edge for the row
-// update, one uint16 for the syndrome), row starts, barrier flags, packed
-// hard bits, L, and (fused integer modes) R.
+// update, one uint16 for the syndrome), row starts, barrier flags, the
+// group exit's target as read by thread 0, packed hard bits, L, and (fused
+// integer modes) R.
 struct Layout {
-  size_t cs, rs, sync, hb, l, r, total;
+  size_t cs, rs, sync, tgt, hb, l, r, total;
 };
 
 template <int M>
@@ -190,7 +204,8 @@ __host__ __device__ inline Layout layout(int rows, int cols, int n_edges, int n_
   o.cs = align16(size_t(n_edges) * sizeof(uint32_t));
   o.rs = o.cs + align16(size_t(n_edges) * sizeof(uint16_t));
   o.sync = o.rs + align16(size_t(rows + 1) * sizeof(uint16_t));
-  o.hb = o.sync + align16(size_t(rows));
+  o.tgt = o.sync + align16(size_t(rows));
+  o.hb = o.tgt + 16;
   o.l = o.hb + align16(size_t(cols) * nw * sizeof(uint32_t));
   o.r = o.l + align16(size_t(cols) * zc * sizeof(typename Types<M>::L));
   o.total = o.r + (r_in_smem ? r_bytes<M>(rows, n_big, zc) : 0);
@@ -531,19 +546,66 @@ __device__ __forceinline__ void copy_elems(T* dst, const T* src, int n, bool vec
   }
 }
 
+// Bytes of the state a codeblock keeps for the group exit, in device
+// memory: its compressed R (integer modes; the f32 mode's R lives in
+// r_state already), then its posterior L.
+template <int M>
+__host__ __device__ inline size_t keep_bytes(int rows, int cols, int n_big, int zc) {
+  const size_t l = align16(size_t(cols) * zc * sizeof(typename Types<M>::L));
+  return (M == kF32 ? 0 : r_bytes<M>(rows, n_big, zc)) + l;
+}
+
+// Copy a codeblock's state between shared memory (L at s_l, R at s_r in
+// the integer modes) and its slot `k` of the keep scratch; to_keep picks
+// the direction.  Whole 16-byte words where L's bytes allow.
+template <int M>
+__device__ __forceinline__ void move_state(unsigned char* k, typename Types<M>::L* s_l,
+                                           unsigned char* s_r, int rows, int cols, int n_big,
+                                           int zc, bool to_keep) {
+  using LT = typename Types<M>::L;
+  size_t off = 0;
+  if constexpr (M != kF32) {
+    const int words = int(r_bytes<M>(rows, n_big, zc) / 16);
+    uint4* kr = reinterpret_cast<uint4*>(k);
+    uint4* sr = reinterpret_cast<uint4*>(s_r);
+    if (to_keep) copy_elems(kr, sr, words, false);
+    else copy_elems(sr, kr, words, false);
+    off = r_bytes<M>(rows, n_big, zc);
+  }
+  const int n = cols * zc;
+  const bool vec = n * sizeof(LT) % 16 == 0;
+  LT* kl = reinterpret_cast<LT*>(k + off);
+  if (to_keep) copy_elems(kl, s_l, n, vec);
+  else copy_elems(s_l, kl, n, vec);
+}
+
+// The group exit's bookkeeping in device memory, zeroed by the caller:
+// target[g] the sweeps group g runs at least (the largest own exit of its
+// codeblocks), missed[round][g] 1 where a codeblock of g misses parity after
+// target[g] + round sweeps.
+struct GroupExit {
+  int32_t* target;          // null: no group exit follows
+  int32_t* missed;
+  unsigned char* keep;      // keep_bytes<M> per codeblock
+  int group;                // codeblocks per group
+};
+
 // Decode codeblock `cb` in the calling CTA, whose tables load_tables has put
 // in shared memory (layout o): load its LLRs, run up to num_iters sweeps
 // (with early_stop, until its own syndrome is zero), store its hard bits, ok
-// and sweep count.  Returns 1 if its syndrome is violated (block-uniform).
-// A CTA may call it for several codeblocks in turn.
+// and sweep count, and add the sweeps to *executed.  When a group exit
+// follows (ge.target), the codeblock posts its own exit to its group's
+// target, sweeps on in shared memory while the target it reads is higher,
+// and keeps its state if it stopped before num_iters.
 template <int M>
-__device__ int decode_codeblock(int cb, unsigned char* smem, const Layout& o,
-                                const typename Types<M>::In* __restrict__ llr,
-                                int8_t* __restrict__ hard, uint8_t* __restrict__ ok_out,
-                                int32_t* __restrict__ sweeps_out,
-                                unsigned char* __restrict__ r_state, int rows, int cols,
-                                int kb, int n_big, int zc, int num_iters, Scale sc,
-                                int early_stop, int hard_le, int vec_in, int vec_out) {
+__device__ void decode_codeblock(int cb, unsigned char* smem, const Layout& o,
+                                 const typename Types<M>::In* __restrict__ llr,
+                                 int8_t* __restrict__ hard, uint8_t* __restrict__ ok_out,
+                                 int32_t* __restrict__ sweeps_out,
+                                 unsigned char* __restrict__ r_state, GroupExit ge,
+                                 unsigned long long* executed, int rows, int cols,
+                                 int kb, int n_big, int zc, int num_iters, Scale sc,
+                                 int early_stop, int hard_le, int vec_in, int vec_out) {
   using LT = typename Types<M>::L;
   const int z = threadIdx.x;
   const uint32_t* s_edge = reinterpret_cast<const uint32_t*>(smem);
@@ -557,7 +619,6 @@ __device__ int decode_codeblock(int cb, unsigned char* smem, const Layout& o,
   else r = smem + o.r;
   uint32_t* r_words = reinterpret_cast<uint32_t*>(r);
   uint8_t* r_big = r + size_t(rows) * zc * sizeof(uint32_t);
-  __syncthreads();   // the previous codeblock's hard bits are stored
   load_llrs<M>(s_l, llr + size_t(cb) * cols * zc, cols * zc, vec_in);
   __syncthreads();
 
@@ -574,12 +635,35 @@ __device__ int decode_codeblock(int cb, unsigned char* smem, const Layout& o,
   if (!early_stop || it == 0)
     violated = syndrome_violated<M>(s_l, s_hb, s_cs, s_rs, rows, cols, zc, hard_le);
 
+  if (ge.target != nullptr) {
+    // Every codeblock of the group runs at least the largest exit posted
+    // so far: sweep on to it here instead of resuming from kept state.
+    int* t = ge.target + cb / ge.group;
+    int* s_target = reinterpret_cast<int*>(smem + o.tgt);
+    bool moved = false;
+    for (;;) {
+      if (z == 0) *s_target = max(atomicMax(t, it), it);
+      __syncthreads();
+      const int m = *s_target;
+      if (m <= it) break;   // uniform
+      // Each sweep ends in a barrier: every thread has read s_target
+      // before thread 0 writes it again.
+      for (; it < m; ++it)
+        sweep<M, false>(s_l, r_words, r_big, s_edge, s_rs, s_sync, rows, zc, z, sc);
+      moved = true;
+    }
+    if (moved) violated = syndrome_violated<M>(s_l, s_hb, s_cs, s_rs, rows, cols, zc, hard_le);
+    if (it < num_iters)
+      move_state<M>(ge.keep + size_t(cb) * keep_bytes<M>(rows, cols, n_big, zc), s_l,
+                    smem + o.r, rows, cols, n_big, zc, true);
+  }
+
   store_hard<M>(s_l, hard + size_t(cb) * kb * zc, kb * zc, vec_out, hard_le);
   if (z == 0) {
     ok_out[cb] = violated ? 0 : 1;
     sweeps_out[cb] = it;
+    if (executed != nullptr) atomicAdd(executed, static_cast<unsigned long long>(it));
   }
-  return violated;
 }
 
 // Fused path: every sweep of one codeblock in one launch.
@@ -588,73 +672,75 @@ __global__ void __launch_bounds__(kMaxZc, 2)
 layered_kernel(const typename Types<M>::In* __restrict__ llr,
                int8_t* __restrict__ hard, uint8_t* __restrict__ ok_out,
                int32_t* __restrict__ sweeps_out, unsigned char* __restrict__ r_state,
+               GroupExit ge, unsigned long long* executed,
                Tables tb, int rows, int cols, int kb, int n_edges, int n_big, int zc,
                int num_iters,
                Scale sc, int early_stop, int hard_le, int vec_in, int vec_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout o = load_tables<M>(smem, tb, rows, cols, n_edges, n_big, zc, M != kF32);
-  decode_codeblock<M>(blockIdx.x, smem, o, llr, hard, ok_out, sweeps_out, r_state, rows, cols,
-                      kb, n_big, zc, num_iters, sc, early_stop, hard_le, vec_in, vec_out);
+  decode_codeblock<M>(blockIdx.x, smem, o, llr, hard, ok_out, sweeps_out, r_state, ge,
+                      executed, rows, cols, kb, n_big, zc, num_iters, sc, early_stop,
+                      hard_le, vec_in, vec_out);
 }
 
-// The group exit, after the fused path has decoded every codeblock with its
-// own exit (f_i sweeps).  The batch rule, applied to each group of `group`
-// consecutive codeblocks, runs every codeblock of a group for s* sweeps:
-// the first n at which every codeblock of the group meets parity, or
-// num_iters.  A codeblock's sweeps do not depend on the others, so s* >= F
-// = max f_i over the group (F = num_iters where one missed parity: it ran
-// them all), and a codeblock with f_i < target is decoded again from its
-// LLRs with exactly `target` sweeps.  If one of those misses parity, its
-// group's target moves up one sweep and every codeblock of the group is
-// decoded again, until a target has every codeblock of the group meeting
-// parity or target = num_iters.  Launched cooperatively with at most the
-// resident CTAs (each takes codeblocks blockIdx.x, + gridDim.x, ...), so the
-// grid can wait for itself between rounds.  ctrl (int32, zeroed by the
-// caller): [r] groups still open after round r (num_iters + 2 entries; a
-// group takes at most num_iters rounds), then per group its target (-1 once
-// settled), then per group a flag that a codeblock missed parity at it.
+// One round of the group exit, after the fused path (modes 0 and 1).  The
+// batch rule runs every codeblock of a group for s* sweeps, the first n at
+// which all of them meet parity, or num_iters.  A codeblock's sweeps do not
+// depend on the others, so s* >= target[g], the largest own exit of the
+// group's codeblocks (num_iters where one missed parity: it ran them all).
+// Round 0 brings every codeblock of group g to target[g] sweeps, resuming
+// from its kept state; round r > 0 runs one more sweep on every codeblock
+// of a group in which one missed parity in round r - 1.  A CTA with nothing
+// to do returns at once.  The kept state is written back only where
+// another round can follow (target below num_iters).  Every codeblock thus
+// runs exactly its group's s* sweeps, none of them twice.
 template <int M>
 __global__ void __launch_bounds__(kMaxZc, 2)
-group_exit_kernel(const typename Types<M>::In* __restrict__ llr,
-                  int8_t* __restrict__ hard, uint8_t* __restrict__ ok_out,
-                  int32_t* __restrict__ sweeps_out, unsigned char* __restrict__ r_state,
-                  int32_t* __restrict__ ctrl, Tables tb, int batch, int group, int rows,
-                  int cols, int kb, int n_edges, int n_big, int zc, int num_iters, Scale sc,
-                  int hard_le, int vec_in, int vec_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::grid_group grid = cg::this_grid();
-  const int n_groups = (batch + group - 1) / group;
-  int32_t* still_open = ctrl;
-  int32_t* target = ctrl + num_iters + 2;
-  int32_t* missed = target + n_groups;
-  for (int i = int(grid.thread_rank()); i < batch; i += int(grid.num_threads()))
-    atomicMax(target + i / group, sweeps_out[i]);
-  const Layout o = load_tables<M>(smem, tb, rows, cols, n_edges, n_big, zc, M != kF32);
-  grid.sync();
-  for (int round = 0;; ++round) {
-    for (int cb = blockIdx.x; cb < batch; cb += gridDim.x) {
-      // Uniform: both were written before the last grid.sync.
-      const int t = target[cb / group];
-      if (t < 0 || sweeps_out[cb] == t) continue;
-      if (decode_codeblock<M>(cb, smem, o, llr, hard, ok_out, sweeps_out, r_state, rows, cols,
-                              kb, n_big, zc, t, sc, 0, hard_le, vec_in, vec_out) &&
-          threadIdx.x == 0)
-        missed[cb / group] = 1;
+resume_kernel(int8_t* __restrict__ hard, uint8_t* __restrict__ ok_out,
+              int32_t* __restrict__ sweeps_out, unsigned char* __restrict__ r_state,
+              GroupExit ge, unsigned long long* executed, Tables tb, int round, int rows,
+              int cols, int kb, int n_edges, int n_big, int zc, int num_iters, Scale sc,
+              int hard_le, int vec_out) {
+  using LT = typename Types<M>::L;
+  const int cb = blockIdx.x, g = cb / ge.group;
+  const int n_groups = (int(gridDim.x) + ge.group - 1) / ge.group;
+  const int t = ge.target[g] + round;
+  if (t > num_iters || (round > 0 && ge.missed[(round - 1) * n_groups + g] == 0)) return;
+  const int done = sweeps_out[cb];
+  int violated;
+  if (done >= t) {
+    violated = !ok_out[cb];   // round 0: reached its group's target in the fused path
+  } else {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int z = threadIdx.x;
+    const Layout o = load_tables<M>(smem, tb, rows, cols, n_edges, n_big, zc, M != kF32);
+    const uint32_t* s_edge = reinterpret_cast<const uint32_t*>(smem);
+    const uint16_t* s_cs = reinterpret_cast<const uint16_t*>(smem + o.cs);
+    const uint16_t* s_rs = reinterpret_cast<const uint16_t*>(smem + o.rs);
+    const uint8_t* s_sync = smem + o.sync;
+    uint32_t* s_hb = reinterpret_cast<uint32_t*>(smem + o.hb);
+    LT* s_l = reinterpret_cast<LT*>(smem + o.l);
+    unsigned char* r;
+    if constexpr (M == kF32) r = r_state + size_t(cb) * r_bytes<M>(rows, n_big, zc);
+    else r = smem + o.r;
+    uint32_t* r_words = reinterpret_cast<uint32_t*>(r);
+    uint8_t* r_big = r + size_t(rows) * zc * sizeof(uint32_t);
+    unsigned char* k = ge.keep + size_t(cb) * keep_bytes<M>(rows, cols, n_big, zc);
+    move_state<M>(k, s_l, smem + o.r, rows, cols, n_big, zc, false);
+    __syncthreads();
+    for (int it = done; it < t; ++it)
+      sweep<M, false>(s_l, r_words, r_big, s_edge, s_rs, s_sync, rows, zc, z, sc);
+    violated = syndrome_violated<M>(s_l, s_hb, s_cs, s_rs, rows, cols, zc, hard_le);
+    if (t < num_iters) move_state<M>(k, s_l, smem + o.r, rows, cols, n_big, zc, true);
+    store_hard<M>(s_l, hard + size_t(cb) * kb * zc, kb * zc, vec_out, hard_le);
+    if (z == 0) {
+      ok_out[cb] = violated ? 0 : 1;
+      sweeps_out[cb] = t;
+      if (executed != nullptr) atomicAdd(executed, static_cast<unsigned long long>(t - done));
     }
-    grid.sync();
-    for (int g = int(grid.thread_rank()); g < n_groups; g += int(grid.num_threads())) {
-      if (target[g] < 0) continue;
-      if (missed[g] && target[g] < num_iters) {
-        ++target[g];
-        missed[g] = 0;
-        atomicAdd(still_open + round, 1);
-      } else {
-        target[g] = -1;
-      }
-    }
-    grid.sync();
-    if (still_open[round] == 0) break;
   }
+  if (violated && t < num_iters && threadIdx.x == 0)
+    ge.missed[round * n_groups + g] = 1;   // every writer stores 1
 }
 
 // K2's tiled path: sweep number `it` of every codeblock whose tile has not
@@ -726,7 +812,7 @@ cudaError_t allow_max_smem(const void* kernel) {
 }
 
 constexpr int kTiledTag = 3;
-constexpr int kGroupTag = 4;   // + M: the group-exit kernels
+constexpr int kResumeTag = 4;   // + M: the group exit's resume kernels
 
 inline int threads_for(int zc) { return 32 * ((zc + 31) / 32); }
 
@@ -734,42 +820,51 @@ inline bool aligned16(const void* p, size_t row_bytes) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && row_bytes % 16 == 0;
 }
 
+// The arguments the fused and the resume launches share.
+struct Launch {
+  int8_t* hard;
+  uint8_t* ok;
+  int32_t* sweeps;
+  unsigned char* r_state;
+  GroupExit ge;
+  unsigned long long* executed;
+  Tables tb;
+  int batch, rows, cols, kb, n_edges, n_big, zc, num_iters;
+  Scale sc;
+  int hard_le;
+  cudaStream_t stream;
+};
+
+// Round `round` of the group exit (resume_kernel<M>), one CTA per codeblock.
 template <int M>
-int launch(const void* llr, int8_t* hard, uint8_t* ok, int32_t* sweeps, void* r_state,
-           int32_t* ctrl, Tables tb, int batch, int rows, int cols, int kb, int n_edges,
-           int n_big, int zc, int num_iters, Scale sc, int exit_group, int hard_le,
-           cudaStream_t stream) {
+int resume(const Launch& a, int round) {
+  const size_t smem = layout<M>(a.rows, a.cols, a.n_edges, a.n_big, a.zc, M != kF32).total;
+  cudaError_t err = allow_max_smem<kResumeTag + M>(reinterpret_cast<const void*>(resume_kernel<M>));
+  if (err != cudaSuccess) return int(err);
+  resume_kernel<M><<<a.batch, threads_for(a.zc), smem, a.stream>>>(
+      a.hard, a.ok, a.sweeps, a.r_state, a.ge, a.executed, a.tb, round, a.rows, a.cols, a.kb,
+      a.n_edges, a.n_big, a.zc, a.num_iters, a.sc, a.hard_le,
+      int(aligned16(a.hard, size_t(a.kb) * a.zc)));
+  return int(cudaGetLastError());
+}
+
+// The fused path, then (with a group exit) `rounds` rounds of resume_kernel.
+template <int M>
+int launch(const Launch& a, const void* llr, int exit_group, int rounds) {
   using In = typename Types<M>::In;
-  const size_t smem = layout<M>(rows, cols, n_edges, n_big, zc, M != kF32).total;
+  const size_t smem = layout<M>(a.rows, a.cols, a.n_edges, a.n_big, a.zc, M != kF32).total;
   cudaError_t err = allow_max_smem<M>(reinterpret_cast<const void*>(layered_kernel<M>));
   if (err != cudaSuccess) return int(err);
-  int vec_in = aligned16(llr, size_t(cols) * zc * sizeof(In));
-  int vec_out = aligned16(hard, size_t(kb) * zc);
-  layered_kernel<M><<<batch, threads_for(zc), smem, stream>>>(
-      static_cast<const In*>(llr), hard, ok, sweeps, static_cast<unsigned char*>(r_state),
-      tb, rows, cols, kb, n_edges, n_big, zc, num_iters, sc,
-      exit_group != 0, hard_le, vec_in, vec_out);
+  layered_kernel<M><<<a.batch, threads_for(a.zc), smem, a.stream>>>(
+      static_cast<const In*>(llr), a.hard, a.ok, a.sweeps, a.r_state, a.ge, a.executed, a.tb,
+      a.rows, a.cols, a.kb, a.n_edges, a.n_big, a.zc, a.num_iters, a.sc, exit_group != 0,
+      a.hard_le, int(aligned16(llr, size_t(a.cols) * a.zc * sizeof(In))),
+      int(aligned16(a.hard, size_t(a.kb) * a.zc)));
   err = cudaGetLastError();
-  if (err != cudaSuccess || exit_group <= 1 || num_iters == 0) return int(err);
-
-  // The group exit: as many CTAs as stay resident, launched cooperatively.
-  const void* kernel = reinterpret_cast<const void*>(group_exit_kernel<M>);
-  err = allow_max_smem<kGroupTag + M>(kernel);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, group_exit_kernel<M>,
-                                                        threads_for(zc), smem);
-  if (err != cudaSuccess) return int(err);
-  if (per_sm < 1) return int(cudaErrorCooperativeLaunchTooLarge);
-  const In* llr_in = static_cast<const In*>(llr);
-  unsigned char* r = static_cast<unsigned char*>(r_state);
-  void* args[] = {&llr_in, &hard, &ok, &sweeps, &r, &ctrl, &tb, &batch, &exit_group, &rows,
-                  &cols, &kb, &n_edges, &n_big, &zc, &num_iters, &sc, &hard_le, &vec_in,
-                  &vec_out};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(std::min(batch, per_sm * sms)),
-                                    dim3(threads_for(zc)), args, smem, stream);
+  if constexpr (M != kInt8) {
+    for (int round = 0; err == cudaSuccess && a.ge.target != nullptr && round < rounds; ++round)
+      err = cudaError_t(resume<M>(a, round));
+  }
   return int(err);
 }
 
@@ -813,15 +908,30 @@ int ldpc_layered_blocks_per_sm(int mode, int rows, int cols, int n_edges, int n_
   }
 }
 
+// Bytes of kept state per codeblock that the caller allocates for the group
+// exit (keep_bytes: the integer modes' compressed R, then L).
+size_t ldpc_layered_keep_bytes(int mode, int rows, int cols, int n_big, int zc) {
+  return mode == kF32 ? keep_bytes<kF32>(rows, cols, n_big, zc)
+                      : keep_bytes<kWire>(rows, cols, n_big, zc);
+}
+
 // Fused path: decode `batch` codeblocks of (cols * zc) LLRs laid out
 // row-major, all sweeps in one launch.  exit_group: 0 runs num_iters sweeps,
-// 1 stops each codeblock at its own zero syndrome, g > 1 (modes 0 and 1)
-// stops each group of g consecutive codeblocks together: every codeblock of
-// a group runs the sweeps after which all of them first meet parity (or
-// num_iters), by a second, cooperative launch (group_exit_kernel) that needs
-// ctrl: num_iters + 2 + 2 * ceil(batch / g) int32 zeroed by the caller.
+// >= 1 stops each codeblock at its own zero syndrome.  With ctrl (modes 0
+// and 1) every group of exit_group consecutive codeblocks stops together,
+// the batch rule: every codeblock of a group runs the sweeps after which all
+// of them first meet parity (or num_iters).  The fused launch posts each
+// codeblock's own exit to its group's target and keeps the state of those
+// that stop early in `keep` (batch * ldpc_layered_keep_bytes); `rounds`
+// launches of the resume kernel follow (num_iters gives the rule; 0 leaves
+// the rounds to ldpc_layered_resume, as a caller that reduces ctrl over
+// several ranks between them does).  ctrl: ceil(batch / exit_group) *
+// (num_iters + 1) int32 zeroed by the caller: the targets, then per round
+// the groups that missed parity.
 // mode 0 (f32): llr float32, r_state holds batch * ldpc_layered_state_bytes.
 // mode 1 (wire) / 2 (int8): llr int8, r_state unused (may be null).
+// executed (may be null): a uint64 to which every launch adds the sweeps it
+// ran.
 // Tables (device memory, int32): row_start (rows + 1), row_sync (rows; 1 =
 // a barrier after the row: the next row shares a column with a row since the
 // last barrier, or it is the last row), edge_col and edge_shift (E, row-major,
@@ -829,31 +939,59 @@ int ldpc_layered_blocks_per_sm(int mode, int rows, int cols, int n_edges, int n_
 // hard_le: 1 gives the f32 mode the hard rule L <= 0 (else L < 0); the wire
 // mode is always L <= 0 and the int8 mode L < 0.
 // Outputs: hard (batch, kb * zc) int8, ok (batch,) uint8, sweeps (batch,) int32.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launches (0 = launched).
 int ldpc_layered_decode(const void* llr, int mode, int8_t* hard, uint8_t* ok,
-                        int32_t* sweeps, void* r_state, int32_t* ctrl,
-                        const int32_t* row_start,
+                        int32_t* sweeps, void* r_state, void* keep, int32_t* ctrl,
+                        unsigned long long* executed, const int32_t* row_start,
                         const int32_t* row_sync, const int32_t* edge_col,
                         const int32_t* edge_shift, int batch,
                         int rows, int cols, int kb, int n_edges, int n_big, int zc,
                         int num_iters, float scale, int scale16, int exit_group,
-                        int hard_le, void* stream) {
+                        int hard_le, int rounds, void* stream) {
   if (batch == 0) return 0;
   if (zc < 1 || zc > kMaxZc || exit_group < 0 ||
-      (exit_group > 1 && (ctrl == nullptr || mode == kInt8)))
+      (ctrl != nullptr && (exit_group < 1 || keep == nullptr || mode == kInt8)))
     return int(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  const Scale sc{scale, scale16};
-  const Tables tb{row_start, row_sync, edge_col, edge_shift};
-#define LDPC_ARGS llr, hard, ok, sweeps, r_state, ctrl, tb, batch, rows, cols, kb, n_edges, \
-    n_big, zc, num_iters, sc, exit_group, hard_le, s
+  const int n_groups = ctrl == nullptr ? 0 : (batch + exit_group - 1) / exit_group;
+  const Launch a{hard, ok, sweeps, static_cast<unsigned char*>(r_state),
+                 {ctrl, ctrl == nullptr ? nullptr : ctrl + n_groups,
+                  static_cast<unsigned char*>(keep), exit_group},
+                 executed, {row_start, row_sync, edge_col, edge_shift},
+                 batch, rows, cols, kb, n_edges, n_big, zc, num_iters, {scale, scale16},
+                 hard_le, static_cast<cudaStream_t>(stream)};
   switch (mode) {
-    case kF32: return launch<kF32>(LDPC_ARGS);
-    case kWire: return launch<kWire>(LDPC_ARGS);
-    case kInt8: return launch<kInt8>(LDPC_ARGS);
+    case kF32: return launch<kF32>(a, llr, exit_group, rounds);
+    case kWire: return launch<kWire>(a, llr, exit_group, rounds);
+    case kInt8: return launch<kInt8>(a, llr, exit_group, rounds);
     default: return int(cudaErrorInvalidValue);
   }
-#undef LDPC_ARGS
+}
+
+// Round `round` of the group exit after ldpc_layered_decode(..., rounds=0)
+// with the same arguments (ctrl's targets and earlier rounds' flags as the
+// caller left them).  Modes 0 and 1.
+int ldpc_layered_resume(int mode, int8_t* hard, uint8_t* ok, int32_t* sweeps, void* r_state,
+                        void* keep, int32_t* ctrl, unsigned long long* executed,
+                        const int32_t* row_start, const int32_t* row_sync,
+                        const int32_t* edge_col, const int32_t* edge_shift, int batch,
+                        int rows, int cols, int kb, int n_edges, int n_big, int zc,
+                        int num_iters, float scale, int scale16, int exit_group,
+                        int hard_le, int round, void* stream) {
+  if (batch == 0) return 0;
+  if (zc < 1 || zc > kMaxZc || exit_group < 1 || ctrl == nullptr || keep == nullptr ||
+      round < 0 || round >= num_iters)
+    return int(cudaErrorInvalidValue);
+  const int n_groups = (batch + exit_group - 1) / exit_group;
+  const Launch a{hard, ok, sweeps, static_cast<unsigned char*>(r_state),
+                 {ctrl, ctrl + n_groups, static_cast<unsigned char*>(keep), exit_group},
+                 executed, {row_start, row_sync, edge_col, edge_shift},
+                 batch, rows, cols, kb, n_edges, n_big, zc, num_iters, {scale, scale16},
+                 hard_le, static_cast<cudaStream_t>(stream)};
+  switch (mode) {
+    case kF32: return resume<kF32>(a, round);
+    case kWire: return resume<kWire>(a, round);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 // K2's tiled path: one launch per sweep, tiles of b_tile consecutive

@@ -43,6 +43,9 @@ _TPU_FORMS = {
     "layered_rolls_wire": "layered_wire", "layered_rolls_wire_i8s": "layered_wire",
 }
 
+# The schedules with the batch early stop (the ones process_groups extends).
+_BATCH_EXIT = ("auto", "wire_auto", "layered", "layered_wire", "layered_rolls_i8")
+
 # Wire-domain limits (reference int8 LLR semantics): load clamp, v2c
 # saturation / min-tracker cap, and the value a pinned (fixed) bit takes.
 WIRE_LOAD_CLAMP = 64.0
@@ -107,7 +110,8 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
            scaling: float = DEFAULT_SCALING,
            schedule: str = "auto",
            early_stop: bool = True,
-           exit_group: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+           exit_group: int | None = None,
+           process_groups=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode (B, cols*Zc) LLRs -> (hard message bits (B, kb*Zc) int8,
     parity_ok (B,) bool).
 
@@ -149,9 +153,22 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
     CUDA tensor 'auto' and 'wire_auto' take it in one kernel call; the other
     schedules decode each group in a call of its own.
 
+    ``process_groups`` (``torch.distributed`` groups, e.g. ``[mesh.get_group
+    (a) for a in cb_axes]``) extends the early stop's batch over their
+    ranks: every rank's codeblocks sweep until every codeblock of every
+    rank meets parity, the reference's exit over a sharded batch.  Every
+    rank of the groups makes the call, also one with no codeblocks.  Groups
+    of one rank add nothing (no collective); with ranks, ``exit_group``
+    raises.
+
     A batch of no codeblocks (an empty shard) returns empty results.
     """
-    if llrs.shape[0] == 0 and schedule not in _TPU_FORMS:
+    groups = (exit_ranks(process_groups)
+              if early_stop and schedule in _BATCH_EXIT else [])
+    if groups and exit_group is not None:
+        raise ValueError("exit_group and process_groups exclude each other: "
+                         "over ranks the early stop's batch is the whole one")
+    if llrs.shape[0] == 0 and not groups and schedule not in _TPU_FORMS:
         from .decoder_cuda import empty_result
         return empty_result(bg, zc, llrs.device)[:2]
     kernel = llrs.device.type != "cpu" and schedule in ("auto", "wire_auto")
@@ -168,7 +185,8 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
             hard, ok, _ = decode_layered(llrs.to(torch.float32).contiguous(),
                                          bg, zc, num_iters, scaling, wire=False,
                                          early_stop=early_stop, strict=False,
-                                         exit_group=exit_group)
+                                         exit_group=exit_group,
+                                         process_groups=groups)
             return hard, ok
     if schedule in ("wire_auto", "pallas"):
         from .decoder_cuda import decode_layered
@@ -179,18 +197,20 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
             return hard, ok
         if llrs.device.type == "cpu":
             return _decode_layered(llrs, bg, zc, num_iters, scaling, True,
-                                   early_stop)
+                                   early_stop, groups)
         if llrs.dtype != torch.int8:
             llrs = torch.clamp(llrs, -WIRE_LOAD_CLAMP, WIRE_LOAD_CLAMP
                                ).to(torch.int8)
         hard, ok, _ = decode_layered(llrs, bg, zc, num_iters, scaling,
                                      wire=True, early_stop=early_stop,
-                                     exit_group=exit_group)
+                                     exit_group=exit_group,
+                                     process_groups=groups)
         return hard, ok
     if schedule == "flooding":
         return _decode_flooding(llrs, bg, zc, num_iters, scaling)
     if schedule == "layered_rolls_i8":
-        return _decode_layered_i8(llrs, bg, zc, num_iters, scaling, early_stop)
+        return _decode_layered_i8(llrs, bg, zc, num_iters, scaling, early_stop,
+                                  groups)
     if schedule in _TPU_FORMS:
         raise NotImplementedError(
             f"decode schedule {schedule!r} is the reference's TPU formulation "
@@ -200,18 +220,54 @@ def decode(llrs: torch.Tensor, bg: int, zc: int,
     if schedule not in ("layered", "layered_wire"):
         raise ValueError(f"unknown decode schedule {schedule!r}")
     return _decode_layered(llrs, bg, zc, num_iters, scaling,
-                           schedule == "layered_wire", early_stop)
+                           schedule == "layered_wire", early_stop, groups)
 
 
-def _decode_layered(llrs, bg, zc, num_iters, scaling, wire, early_stop):
+def exit_ranks(process_groups) -> list:
+    """The groups of ``process_groups`` that hold more than one rank: the
+    early stop's batch spans the product of their ranks.  None, or groups
+    of one rank each, give [] (no collective)."""
+    if not process_groups:
+        return []
+    import torch.distributed as dist
+    return [g for g in process_groups if dist.get_world_size(g) > 1]
+
+
+def reduce_over(x: torch.Tensor, groups, op: str) -> torch.Tensor:
+    """``x`` all-reduced in place by ``op`` ("min" or "max") over each
+    group in turn: a min or max over each axis of a mesh is the one over
+    their product."""
+    if groups:
+        import torch.distributed as dist
+        red = dist.ReduceOp.MIN if op == "min" else dist.ReduceOp.MAX
+        for g in groups:
+            dist.all_reduce(x, op=red, group=g)
+    return x
+
+
+def batch_met(ok: torch.Tensor, groups) -> bool:
+    """Whether every codeblock of the batch meets parity: ``ok`` (this
+    rank's codeblocks, maybe none) and, over ``groups``, every rank's (an
+    all-reduce and a host read)."""
+    if not groups:
+        return bool(ok.all())
+    met = ok.all().to(torch.int32).reshape(1)
+    return bool(reduce_over(met, groups, "min").item())
+
+
+def _decode_layered(llrs, bg, zc, num_iters, scaling, wire, early_stop,
+                    groups=()):
     """'layered' / 'layered_wire': batch-granularity early stop (the
     reference's CRC early stop, ldpc_decoder_impl.cpp:125-133, exiting once
-    every codeword in the call satisfies parity)."""
+    every codeword in the call satisfies parity; over ``groups``, every
+    codeword of every rank)."""
     plan = get_decode_plan(bg, zc)
     l, r_msgs = init_state(llrs, plan, wire)
     for _ in range(num_iters):
-        sweep(l, r_msgs, bg, zc, scaling, wire)
-        if early_stop and bool(check_parity(hard_decision(l), bg, zc).all()):
+        if l.shape[0]:
+            sweep(l, r_msgs, bg, zc, scaling, wire)
+        if early_stop and batch_met(check_parity(hard_decision(l), bg, zc),
+                                    groups):
             break
     hard = hard_decision(l)
     return hard[:, :plan.kb * zc], check_parity(hard, bg, zc)
@@ -241,7 +297,8 @@ def _decode_flooding(llrs, bg, zc, num_iters, scaling):
     return hard[:, :plan.kb * zc], check_parity(hard, bg, zc)
 
 
-def _decode_layered_i8(llrs, bg, zc, num_iters, scaling, early_stop):
+def _decode_layered_i8(llrs, bg, zc, num_iters, scaling, early_stop,
+                       groups=()):
     """'layered_rolls_i8': layered min-sum in the reference decoder's
     fixed-point semantics (ldpc_decoder_avx2.cpp, log_likelihood_ratio.h),
     in int32 lanes holding int8 values.
@@ -296,8 +353,10 @@ def _decode_layered_i8(llrs, bg, zc, num_iters, scaling, early_stop):
             r_msgs[:, r, :deg] = r_new
 
     for _ in range(num_iters):
-        sweep_i8()
-        if early_stop and bool(check_parity(hard_decision(l), bg, zc).all()):
+        if b:
+            sweep_i8()
+        if early_stop and batch_met(check_parity(hard_decision(l), bg, zc),
+                                    groups):
             break
     hard = hard_decision(l)
     return hard[:, :plan.kb * zc], check_parity(hard, bg, zc)

@@ -29,10 +29,13 @@ PyTorch, which the CPU tests and the on-card comparison use.
 ``decode_layered``'s early stop is the reference's batch rule over groups
 of ``exit_group`` consecutive codeblocks, in the kernel and its twin alike:
 the JAX ``layered`` / ``layered_wire`` schedules stop the whole batch of a
-call once every codeword meets parity (the default group), and under a
-``vmap`` over TBs each TB's codeblocks (a group of C).  A group of 1 is
-the exit per codeblock, which gives other bits on waterfall input
-(ROADMAP.md Queue C).
+call once every codeword meets parity (the default group), under a
+``vmap`` over TBs each TB's codeblocks (a group of C), and under its
+sharding the global batch (``process_groups``: every rank's codeblocks).
+A group of 1 is the exit per codeblock, which gives other bits on
+waterfall input.  The kernel's group exit runs no sweep twice: a codeblock
+that stops before its group keeps its state and resumes from it; the
+sweeps it ran are counted on the card (``executed_sweeps``).
 """
 
 from __future__ import annotations
@@ -45,14 +48,15 @@ import torch
 
 from ... import cuda_build
 from .decoder import (DEFAULT_ITERS, DEFAULT_SCALING, _plan_tensors,
-                      check_parity, get_decode_plan, hard_decision, init_state,
-                      sweep)
+                      batch_met, check_parity, exit_ranks, get_decode_plan,
+                      hard_decision, init_state, reduce_over, sweep)
 from .graph import get_graph
 
 KERNEL = "ldpc_layered"         # K1's launch counter (and the library)
 KERNEL_INT8 = "ldpc_int8"       # K2's launch counter
-# K1's second, cooperative launch when a group of codeblocks stops together
-# (counted apart: K1's own count is one per call of decode_layered).
+# K1's group exit: each launch of its resume kernel (a round; num_iters per
+# call over one rank), counted apart from K1's one per call of
+# decode_layered.
 KERNEL_GROUP_EXIT = "ldpc_layered.group_exit"
 MODE_F32, MODE_WIRE, MODE_INT8 = 0, 1, 2   # the kernel's template modes
 INT8_CLAMP = 120  # decoder_pallas.LLR_CLAMP: K2's message clip
@@ -101,7 +105,8 @@ def decode_layered(llrs: torch.Tensor, bg: int, zc: int,
                    num_iters: int = DEFAULT_ITERS,
                    scaling: float = DEFAULT_SCALING,
                    wire: bool = False, early_stop: bool = False,
-                   strict: bool | None = None, exit_group: int | None = None):
+                   strict: bool | None = None, exit_group: int | None = None,
+                   process_groups=None):
     """Decode (B, cols*Zc) LLRs -> (hard (B, kb*Zc) int8, ok (B,) bool,
     sweeps (B,) int32 run per codeblock).
 
@@ -110,19 +115,27 @@ def decode_layered(llrs: torch.Tensor, bg: int, zc: int,
     False: ``l <= 0``).  With ``early_stop`` every codeblock of a group of
     ``exit_group`` consecutive ones (the whole batch by default) runs the
     sweeps after which all of the group first meet parity, or ``num_iters``.
-    A CUDA tensor runs the kernel (or raises); a CPU tensor runs the plain
-    version."""
+    ``process_groups`` (``torch.distributed`` groups) makes the group every
+    codeblock of every rank of their product; each rank calls, also with
+    no codeblocks, and ``exit_group`` must then be None.  Groups of one rank
+    add no collective.  A CUDA tensor runs the kernel (or raises); a CPU
+    tensor runs the plain version."""
     _check_input(llrs, bg, zc, wire)
     strict = _strict(wire, strict)
-    group = _exit_group(llrs.shape[0], early_stop, exit_group)
-    if llrs.shape[0] == 0:
+    groups = exit_ranks(process_groups) if early_stop and num_iters > 0 else []
+    if groups and exit_group is not None:
+        raise ValueError("exit_group and process_groups exclude each other")
+    b = llrs.shape[0]
+    group = _exit_group(b, early_stop, exit_group)
+    if b == 0 and not groups:
         return empty_result(bg, zc, llrs.device)
     if llrs.device.type == "cpu":
         return decode_layered_plain(llrs, bg, zc, num_iters, scaling, wire,
-                                    early_stop, strict, exit_group)
+                                    early_stop, strict, exit_group, groups)
     out = _launch(llrs, MODE_WIRE if wire else MODE_F32, bg, zc, num_iters,
-                  scaling, group, strict=strict)
-    cuda_build.LAUNCHES[KERNEL] += 1
+                  scaling, group, strict=strict, groups=groups)
+    if b:
+        cuda_build.LAUNCHES[KERNEL] += 1
     return out
 
 
@@ -172,14 +185,17 @@ def _n_big(bg: int, zc: int) -> int:
     return int((_row_degrees(bg, zc) > SMALL_DEG).sum())
 
 
-def _launch(llrs, mode, bg, zc, num_iters, scaling, exit_group, strict=True):
+def _launch(llrs, mode, bg, zc, num_iters, scaling, exit_group, strict=True,
+            groups=()):
     """Run the kernel on a CUDA tensor: the fused path (all sweeps in one
     launch).  ``exit_group`` 0 runs every sweep, 1 stops each codeblock at
     its own zero syndrome, g > 1 stops each group of g consecutive
-    codeblocks together: in K1's modes by a second, cooperative launch
-    (counted under ``KERNEL_GROUP_EXIT``), for K2 by the tiled path (one
-    launch per sweep, per-tile exit).  ``strict=False`` gives the f32 mode
-    the hard rule ``l <= 0``.  Returns (hard, ok, sweeps)."""
+    codeblocks together: in K1's modes by the group exit's resume rounds
+    (each launch counted under ``KERNEL_GROUP_EXIT``), for K2 by the tiled
+    path (one launch per sweep, per-tile exit).  ``groups`` (K1, process
+    groups of more than one rank) extends the group, the whole local batch,
+    over their ranks (``_rounds_over_ranks``).  ``strict=False`` gives the
+    f32 mode the hard rule ``l <= 0``.  Returns (hard, ok, sweeps)."""
     _check_cuda(llrs, bg, zc, mode, scaling, strict)
     g = get_graph(bg, zc)
     dev = llrs.device
@@ -192,16 +208,30 @@ def _launch(llrs, mode, bg, zc, num_iters, scaling, exit_group, strict=True):
     graph = (g.rows, g.cols, g.kb, g.num_edges, n_big, zc)
     scale = (float(np.float32(scaling)), int(scaling * 65536))
     lib = _library()
-    grouped = exit_group > 1 and num_iters > 0
-    tiled = grouped and mode == MODE_INT8
+    tiled = mode == MODE_INT8 and exit_group > 1 and num_iters > 0
+    grouped = (mode != MODE_INT8 and num_iters > 0
+               and (exit_group > 1 or bool(groups)))
     # Compressed R in device memory: the f32 mode's and the tiled path's.
     r_state = (torch.empty((b, lib.ldpc_layered_state_bytes(mode, g.rows, n_big,
                                                              zc)),
                            dtype=torch.uint8, device=dev)
                if tiled or mode == MODE_F32 else None)
-    ctrl = (torch.zeros((num_iters + 2 + 2 * -(-b // exit_group),),
-                        dtype=torch.int32, device=dev)
-            if grouped and not tiled else None)
+    ctrl = keep = None
+    if grouped:
+        # The group exit: targets, then per round the groups that missed
+        # parity; and each codeblock's kept state.
+        ctrl = torch.zeros((-(-b // exit_group) if b else 1) * (num_iters + 1),
+                           dtype=torch.int32, device=dev)
+        keep = torch.empty((b, lib.ldpc_layered_keep_bytes(mode, g.rows, g.cols,
+                                                            n_big, zc)),
+                           dtype=torch.uint8, device=dev)
+    executed = 0 if mode == MODE_INT8 else _executed(dev).data_ptr()
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    state = (hard.data_ptr(), ok.data_ptr(), sweeps.data_ptr(), ptr(r_state),
+             ptr(keep), ptr(ctrl), executed, *tables, b, *graph, num_iters,
+             *scale, exit_group, int(mode == MODE_F32 and not strict))
+    rounds = num_iters if grouped and not groups else 0
+    rc = 0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if tiled:
@@ -213,24 +243,77 @@ def _launch(llrs, mode, bg, zc, num_iters, scaling, exit_group, strict=True):
                 viol.data_ptr(), hard.data_ptr(), ok.data_ptr(),
                 sweeps.data_ptr(), *tables, b, *graph, num_iters, exit_group,
                 stream)
-        else:
-            rc = lib.ldpc_layered_decode(
-                llrs.data_ptr(), mode, hard.data_ptr(), ok.data_ptr(),
-                sweeps.data_ptr(),
-                0 if r_state is None else r_state.data_ptr(),
-                0 if ctrl is None else ctrl.data_ptr(), *tables,
-                b, *graph, num_iters, *scale,
-                exit_group if ctrl is not None else min(exit_group, 1),
-                int(mode == MODE_F32 and not strict), stream)
+        elif b:
+            rc = lib.ldpc_layered_decode(llrs.data_ptr(), mode, *state, rounds,
+                                         stream)
+        if rc == 0 and grouped and b:
+            cuda_build.LAUNCHES[KERNEL_GROUP_EXIT] += rounds
+
+        def resume(r):
+            if not b:
+                return 0
+            out = lib.ldpc_layered_resume(mode, *state, r, stream)
+            cuda_build.LAUNCHES[KERNEL_GROUP_EXIT] += out == 0
+            return out
+
+        if rc == 0 and groups:
+            rc = _rounds_over_ranks(ctrl, groups, num_iters, resume)
     if rc != 0:
         smem = lib.ldpc_layered_smem_bytes(mode, g.rows, g.cols, g.num_edges,
                                            n_big, zc)
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {rc} (mode "
                            f"{mode}, BG{bg} Zc={zc}, {smem} B shared memory "
                            f"per block{', tiled' if tiled else ''})")
-    if ctrl is not None:
-        cuda_build.LAUNCHES[KERNEL_GROUP_EXIT] += 1
     return hard, ok, sweeps
+
+
+def _rounds_over_ranks(ctrl: torch.Tensor, groups, num_iters: int,
+                       resume) -> int:
+    """The group exit over the ranks of ``groups``, the local batch one
+    group: the target all-reduced (max) and read, then round after round
+    ``resume(r)`` and its missed-parity flag all-reduced (max) and read,
+    until no codeblock of any rank missed parity or the target reached
+    num_iters.  Every rank reads the same values, so all make the same
+    collectives, also one with no codeblocks (``resume`` launches nothing
+    there).  Returns the first launch error, else 0."""
+    target = int(reduce_over(ctrl[:1], groups, "max").item())
+    for r in range(num_iters):
+        if target == 0 or target + r > num_iters:
+            break
+        rc = resume(r)
+        if rc:
+            return rc
+        if target + r == num_iters:
+            break
+        if not int(reduce_over(ctrl[1 + r:2 + r], groups, "max").item()):
+            break
+    return 0
+
+
+_EXECUTED: dict = {}
+
+
+def _executed(dev: torch.device) -> torch.Tensor:
+    """The device's count of sweeps K1 ran (one int64; every launch adds)."""
+    key = (dev.type, dev.index)
+    if key not in _EXECUTED:
+        _EXECUTED[key] = torch.zeros((1,), dtype=torch.int64, device=dev)
+    return _EXECUTED[key]
+
+
+def reset_executed_sweeps() -> None:
+    """Zero every device's count of the sweeps K1 ran."""
+    for t in _EXECUTED.values():
+        t.zero_()
+
+
+def executed_sweeps(dev: torch.device | str = "cuda") -> int:
+    """The sweeps K1's launches ran on ``dev`` since the last reset (a host
+    read): with no sweep repeated, the sum of the ``sweeps`` outputs."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return int(_executed(dev).item())
 
 
 @functools.lru_cache(maxsize=None)
@@ -241,11 +324,15 @@ def _library() -> ctypes.CDLL:
     lib.ldpc_layered_smem_bytes.restype = ctypes.c_size_t
     lib.ldpc_layered_state_bytes.argtypes = [i32] * 4
     lib.ldpc_layered_state_bytes.restype = ctypes.c_size_t
+    lib.ldpc_layered_keep_bytes.argtypes = [i32] * 5
+    lib.ldpc_layered_keep_bytes.restype = ctypes.c_size_t
     lib.ldpc_layered_blocks_per_sm.argtypes = [i32] * 6
     lib.ldpc_layered_blocks_per_sm.restype = i32
-    lib.ldpc_layered_decode.argtypes = (
-        [ptr, i32] + [ptr] * 9 + [i32] * 8 + [ctypes.c_float, i32, i32, i32, ptr])
+    shared = [ptr] * 11 + [i32] * 8 + [ctypes.c_float, i32, i32, i32, i32, ptr]
+    lib.ldpc_layered_decode.argtypes = [ptr, i32] + shared
     lib.ldpc_layered_decode.restype = i32
+    lib.ldpc_layered_resume.argtypes = [i32] + shared
+    lib.ldpc_layered_resume.restype = i32
     lib.ldpc_int8_decode_tiled.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
     lib.ldpc_int8_decode_tiled.restype = i32
     return lib
@@ -293,7 +380,8 @@ def decode_layered_plain(llrs: torch.Tensor, bg: int, zc: int,
                          scaling: float = DEFAULT_SCALING,
                          wire: bool = False, early_stop: bool = False,
                          strict: bool | None = None,
-                         exit_group: int | None = None):
+                         exit_group: int | None = None,
+                         process_groups=None):
     """The kernel's function in plain PyTorch (any device).
 
     f32 mode follows ``_make_kernel`` (its running min / second-min with the
@@ -302,9 +390,13 @@ def decode_layered_plain(llrs: torch.Tensor, bg: int, zc: int,
     wire mode follows ``layered_wire``.  With ``early_stop`` each group of
     ``exit_group`` consecutive codeblocks (the whole batch by default) stops
     once all of them meet parity (``layered`` / ``layered_wire``'s rule for
-    one call)."""
+    one call); over ``process_groups`` the batch is every rank's (after each
+    sweep an all-reduce of whether all of this rank's meet parity)."""
     _check_input(llrs, bg, zc, wire)
     strict = _strict(wire, strict)
+    groups = exit_ranks(process_groups) if early_stop else []
+    if groups and exit_group is not None:
+        raise ValueError("exit_group and process_groups exclude each other")
     plan = get_decode_plan(bg, zc)
     l, r_msgs = init_state(llrs, plan, wire)
     b = llrs.shape[0]
@@ -312,6 +404,13 @@ def decode_layered_plain(llrs: torch.Tensor, bg: int, zc: int,
     sweeps = torch.zeros((b,), dtype=torch.int32, device=llrs.device)
     active = torch.arange(b, device=llrs.device)
     for _ in range(num_iters):
+        if groups:
+            if b:
+                sweep(l, r_msgs, bg, zc, scaling, wire)
+            sweeps += 1
+            if batch_met(check_parity(hard_decision(l, strict), bg, zc), groups):
+                break
+            continue
         if active.numel() == 0:
             break
         if active.numel() == b:

@@ -37,6 +37,12 @@ seeded inputs and runs the programs in the same order:
              is even), DTensor's local shape and offset are ``row_block``'s
              and ``full_tensor()`` equals ``unshard`` (a functional
              collective: not under gloo with CUDA tensors).
+  exit       the early stop over the ranks, on the inputs of ``--inputs``
+             (an .npz the caller writes; ``exit_step``): each decode case's
+             LLRs split at its bounds, one block per rank of
+             make_mesh(1, world)'s 'cb' axis, decoded with the mesh's groups
+             ("auto" for float LLRs, "wire_auto" for int8); and ``_ul_back``
+             on that mesh.  The caller holds the results to mesh=None.
 
 Each program asserts exact payloads after gathering its DTensors
 (``slot_pipeline.unshard``, the counterpart of the reference's
@@ -62,6 +68,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import cuda_build
+from ..ops.ldpc import decoder, decoder_cuda
 from . import full_cell as fcm
 from . import mesh as mm
 from . import slot_pipeline as sp
@@ -73,7 +81,7 @@ FC_SNR_DB = 25.0
 # (tests/test_torch_timeblock.py); noise_var and cfo relative.
 SAMPLE_ATOL = 1e-4
 FLOAT_RTOL = 1e-4
-PROGRAMS = ("cell", "carrier", "full_cell", "mimo4", "uneven", "layout")
+PROGRAMS = ("cell", "carrier", "full_cell", "mimo4", "uneven", "layout", "exit")
 
 
 def worker_cell() -> sp.CellConfig:
@@ -319,6 +327,110 @@ STEP_EXACT = ("payload", "tb_ok", "soft")
 STEP_CLOSE = ("noise_var", "cfo")
 
 
+# The exit program's path case: two TBs of a 24-PRB 64QAM r0.75 cell (BG1
+# Zc 320, two codeblocks each) at 16.5 dB, the waterfall, from EXIT_SEED's
+# draw of EXIT_DRAW TBs, 7 sweeps.  EXIT_TBS[0] goes to rank 0: its first
+# codeblock meets parity after 6 sweeps, misses it after 7, meets it after
+# 8; EXIT_TBS[1] to rank 1: a codeblock of it first meets parity after 7.
+# A rank that stopped on its own share would stop rank 0 after 6 sweeps
+# with every codeblock meeting parity; the batch runs 7.
+EXIT_CELL = dict(nof_prb=24, nfft=512, nof_ue=1, prb_per_ue=24,
+                 modulation="qam64", target_rate=0.75)
+EXIT_SNR_DB = 16.5
+EXIT_SEED = (0, 1650)
+EXIT_DRAW = 512
+EXIT_TBS = (130, 2)
+EXIT_ITERS = 7
+
+
+def wire_llrs(cell: sp.CellConfig, n_tb: int, snr_db: float, rng) -> torch.Tensor:
+    """(n_tb, G) wire LLRs of random payloads through ``cell``'s coding
+    chain (segment, encode, rate match, QAM) and AWGN at ``snr_db`` (numpy
+    draws: payloads, then noise), demapped and wire-quantised as the UL
+    front does; unscrambled, so they are ``_ul_back``'s input."""
+    from ..ops import modulation
+    from ..ops.ldpc import encoder, rate_match, segmenter
+    seg, rm = sp._plans(cell)
+    pay = rng.integers(0, 2, (n_tb, cell.derived_tbs()), dtype=np.int8)
+    cw = encoder.encode(segmenter.segment_tb(torch.as_tensor(pay), seg), seg.bg, seg.zc)
+    syms = modulation.modulate(rate_match.rate_match(cw, rm), cell.modulation).numpy()
+    nv = 10 ** (-snr_db / 10)
+    y = syms + (rng.normal(size=syms.shape) + 1j * rng.normal(size=syms.shape)) \
+        * np.sqrt(nv / 2)
+    llr = modulation.demodulate_soft(torch.as_tensor(y.astype(np.complex64)),
+                                     torch.tensor(nv), cell.modulation, quantize=False)
+    return modulation.wire_quantize(llr, cell.modulation).reshape(n_tb, -1)
+
+
+def exit_inputs() -> dict:
+    """The 'exit' program's inputs for 2 ranks (``exit_step``): decode
+    cases "auto" (tools.bler_sweep's MCS 24, 16 dB point, codeblocks 121
+    and 124, one per rank), "wire" (121 and 122 as int8 wire LLRs) and
+    "empty" (121 and 124 on rank 0, none on rank 1), 8 sweeps; and the
+    path case (EXIT_CELL's TBs EXIT_TBS)."""
+    from ..tools import bler_sweep
+    seg, _, full = bler_sweep.point_input(24, 16.0, device="cpu")
+    meta = np.array([seg.bg, seg.zc, bler_sweep.NUM_ITERS])
+    pair = full[[121, 124]].numpy()
+    cell = sp.CellConfig(**EXIT_CELL)
+    llr = wire_llrs(cell, EXIT_DRAW, EXIT_SNR_DB, np.random.default_rng(EXIT_SEED))
+    return {"auto/llrs": pair, "auto/bounds": np.array([0, 1, 2]), "auto/meta": meta,
+            "wire/llrs": full[[121, 122]].clamp(-64, 64).to(torch.int8).numpy(),
+            "wire/bounds": np.array([0, 1, 2]), "wire/meta": meta,
+            "empty/llrs": pair, "empty/bounds": np.array([0, 2, 2]), "empty/meta": meta,
+            "path/llr": llr[list(EXIT_TBS)].numpy(),
+            "path/cell": np.array(json.dumps(EXIT_CELL)),
+            "path/num_iters": np.array(EXIT_ITERS)}
+
+
+def exit_step(inputs, world: int, dev: torch.device) -> dict:
+    """The early stop over the ranks of make_mesh(1, world)'s 'cb' axis.
+
+    ``inputs`` (an .npz's arrays): per decode case ``<name>/llrs`` (B, n),
+    ``<name>/bounds`` (world + 1,) the row split (rank at 'cb' coordinate c
+    takes rows [bounds[c], bounds[c + 1])) and ``<name>/meta`` (bg, zc,
+    num_iters); and, for the path, ``path/llr`` (B_tb, G) wire LLRs,
+    ``path/cell`` (CellConfig's fields as JSON) and ``path/num_iters``.
+    Returns each case's local hard bits, ok and K1 launches, and the path's
+    gathered payload and tb_ok with the hard bits and ok of the decode
+    ``_ul_back`` made on this rank (its codeblock block)."""
+    mesh = mm.make_mesh(n_ue=1, n_cb=world, device_type=dev.type)
+    groups = [mesh.get_group(mm.CB_AXIS)]
+    c = mm.coordinate(mesh)[1]
+    out = {}
+    for key in sorted(k for k in inputs if k.endswith("/llrs")):
+        name = key[:-len("/llrs")]
+        bounds = inputs[f"{name}/bounds"]
+        bg, zc, n = (int(v) for v in inputs[f"{name}/meta"])
+        x = torch.as_tensor(inputs[key][bounds[c]:bounds[c + 1]], device=dev)
+        cuda_build.reset_launches()
+        hard, ok = decoder.decode(x, bg, zc, n, process_groups=groups,
+                                  schedule="wire_auto" if x.dtype == torch.int8
+                                  else "auto")
+        _sync(dev)
+        out.update({f"{name}/hard": hard.cpu().numpy(), f"{name}/ok": ok.cpu().numpy(),
+                    f"{name}/launches": np.array(cuda_build.LAUNCHES[decoder_cuda.KERNEL])})
+    if "path/llr" in inputs:
+        cell = sp.CellConfig(**json.loads(str(inputs["path/cell"])))
+        decodes, decode = [], decoder.decode
+
+        def recorded(*args, **kw):     # the decode _ul_back makes, kept
+            decodes.append(decode(*args, **kw))
+            return decodes[-1]
+
+        decoder.decode = recorded
+        try:
+            pay, tb_ok, _ = sp._ul_back(torch.as_tensor(inputs["path/llr"], device=dev),
+                                        cell, num_iters=int(inputs["path/num_iters"]),
+                                        mesh=mesh)
+        finally:
+            decoder.decode = decode
+        (hard, ok), = decodes
+        out.update({"path/payload": _np(pay), "path/tb_ok": _np(tb_ok),
+                    "path/hard": hard.cpu().numpy(), "path/ok": ok.cpu().numpy()})
+    return out
+
+
 # ------------------------------------------------------------------ the rank
 
 def _even_cb(world: int) -> int:
@@ -330,9 +442,11 @@ def describe(mesh) -> dict:
     return {"names": list(mesh.mesh_dim_names), "ranks": mesh.mesh.tolist()}
 
 
-def run_program(name: str, world: int, dev: torch.device, repeat: int = 1):
+def run_program(name: str, world: int, dev: torch.device, repeat: int = 1,
+                inputs=None):
     """One named program on this rank, its step run ``repeat`` times:
-    (outputs, least seconds per step, tally, the mesh it ran on)."""
+    (outputs, least seconds per step, tally, the mesh it ran on);
+    ``inputs`` (the .npz of ``--inputs``) feeds 'exit'."""
     dt = dev.type
     seed = SEED + PROGRAMS.index(name)
     if name == "cell":
@@ -352,6 +466,12 @@ def run_program(name: str, world: int, dev: torch.device, repeat: int = 1):
         if mm.HOST_AXIS in tally:
             raise AssertionError(f"carrier step crossed the host axis: {tally}")
         return out, sec, tally, describe(mesh)
+    if name == "exit":
+        if inputs is None:
+            raise ValueError("program 'exit' decodes the arrays of --inputs")
+        out, sec, tally = _timed(dev, lambda: exit_step(inputs, world, dev))
+        return out, sec, tally, {"names": [mm.UE_AXIS, mm.CB_AXIS],
+                                 "ranks": [list(range(world))]}
     if name == "layout":
         mesh = mm.make_mesh(n_cb=_even_cb(world), device_type=dt)
         out, sec, tally = _timed(dev, lambda: layout_check(mesh))
@@ -416,6 +536,8 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
     ap.add_argument("--programs", default="cell,carrier")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--inputs", default=None,
+                    help="an .npz of the 'exit' program's inputs (exit_step)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="run each step this many times, report the fastest")
     args = ap.parse_args(argv)
@@ -424,9 +546,11 @@ def main(argv=None) -> int:
                         backend=args.backend, init_method=args.init_method)
     try:
         dev = mm.rank_device(args.device)
+        inputs = None if args.inputs is None else dict(np.load(args.inputs))
         saved, summary = {}, {}
         for name in names:
-            out, sec, tally, mesh = run_program(name, args.world, dev, args.repeat)
+            out, sec, tally, mesh = run_program(name, args.world, dev, args.repeat,
+                                                inputs)
             saved.update({f"{name}/{k}": v for k, v in out.items()})
             summary[name] = {"seconds": sec, "collectives": tally, "mesh": mesh}
         if args.out:

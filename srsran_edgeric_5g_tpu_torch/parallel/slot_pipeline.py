@@ -31,7 +31,8 @@ Sharding (``mesh=``, a ``DeviceMesh`` of ``mesh.py``; the reference's
   * codeblock rows (S*U*C, .) -> P(('ue', 'cb'))
   * resource grid / samples   -> replicated (the symbol rows are gathered)
 Each stage computes on the rank's block of rows with the same ops as
-without a mesh; K1 decodes the rank's codeblocks.  Multi-cell puts the
+without a mesh; K1 decodes the rank's codeblocks, its early stop over the
+whole batch (an all-reduce over the codeblock axes per round).  Multi-cell puts the
 carriers on the mesh's leading 'cell' (or 'host') axis: rows over
 ('cell', 'ue'), codeblocks over ('cell', 'ue', 'cb'), samples over 'cell',
 and nothing crosses that axis.  The inputs are global tensors (the same on
@@ -527,8 +528,10 @@ def _ul_back(llr, cell: CellConfig, rv: int = 0,
     ``new_data`` (B_tb TBs) zeroes it where 1.
 
     On a mesh the rank dematches and decodes its block of the B_tb*C
-    codeblocks (over ``cb_axes``; K1 on the card), then gathers the hard
-    bits of its block of TB rows (over ``row_axes``) for the TB CRC.  The
+    codeblocks (over ``cb_axes``; K1 on the card) with the early stop over
+    every rank's block (all-reduced over the ``cb_axes`` groups), then
+    gathers the hard bits of its block of TB rows (over ``row_axes``) for
+    the TB CRC.  The
     outputs are DTensors of those blocks; the carry may come in as one."""
     seg, rm = _plans(cell, rv)
     c, g = seg.c, llr.shape[-1]
@@ -543,8 +546,12 @@ def _ul_back(llr, cell: CellConfig, rv: int = 0,
             (1.0 - take(new_data, mesh, cb_tbs, (b_tb,), cbx)).repeat_interleave(c)[own])
     full = _dematch(cb_llr, cell, rv, sb, keep)
     new_soft = full[:, 2 * seg.zc:2 * seg.zc + rm.n_cb]
+    # The early stop's batch is the global one (the reference's while_loop
+    # over the sharded batch): every rank sharing the codeblock axes.
+    groups = None if mesh is None else [mesh.get_group(a) for a in cbx]
     hard, _ = decoder.decode(full, seg.bg, seg.zc, num_iters=num_iters,
-                             early_stop=early_stop, schedule="wire_auto")
+                             early_stop=early_stop, schedule="wire_auto",
+                             process_groups=groups)
     k = hard.shape[-1]
     hard = take(wrap(hard, mesh, cbx, (b_tb * c, k)), mesh,
                 lambda crd: row_block(b_tb, mesh, rows, crd), (b_tb, c * k), rows)

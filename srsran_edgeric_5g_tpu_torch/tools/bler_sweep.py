@@ -55,17 +55,22 @@ class Point:
         return 1.0 - float(self.tb_ok.float().mean())
 
 
+def _plan(mcs_idx: int, nof_prb: int = 52):
+    """(McsConfig, segment plan, TBS) of one MCS on ``nof_prb`` PRB."""
+    mcs = tbs_mod.mcs_config(mcs_idx, "qam64")
+    nre = tbs_mod.nof_re(nof_prb, 12, 12)
+    a = tbs_mod.tbs(nre, mcs.target_rate, mcs.qm)
+    bg = segmenter.select_base_graph(a, mcs.target_rate)
+    return mcs, segmenter.get_segment_plan(a, bg, nre * mcs.qm, mcs.qm), a
+
+
 def decoder_input(mcs_idx: int, snr_db: float, n_blocks: int,
                   rng: np.random.Generator, nof_prb: int = 52,
                   device: str | torch.device = "cuda"):
     """The chain up to the decoder for one (MCS, SNR) point, drawing from
     ``rng``: -> (segment plan, McsConfig, (B*C, cols*Zc) float32 LLRs)."""
     dev = resolve_device(device)
-    mcs = tbs_mod.mcs_config(mcs_idx, "qam64")
-    nre = tbs_mod.nof_re(nof_prb, 12, 12)
-    a = tbs_mod.tbs(nre, mcs.target_rate, mcs.qm)
-    bg = segmenter.select_base_graph(a, mcs.target_rate)
-    seg = segmenter.get_segment_plan(a, bg, nre * mcs.qm, mcs.qm)
+    mcs, seg, a = _plan(mcs_idx, nof_prb)
     rm = rate_match.get_rate_match_plan(seg.bg, seg.zc, seg.e[0], 0, mcs.qm,
                                         seg.k_prime)
     payload = torch.as_tensor(rng.integers(0, 2, (n_blocks, a), dtype=np.int8),
@@ -81,6 +86,24 @@ def decoder_input(mcs_idx: int, snr_db: float, n_blocks: int,
     llr = modulation.demodulate_soft(y, torch.tensor(np.float32(nv)),
                                      mcs.modulation).to(torch.float32)
     return seg, mcs, rate_match.rate_dematch(llr.reshape(-1, rm.e), rm)
+
+
+def point_input(mcs_idx: int, snr_db: float, n_blocks: int = 64,
+                device: str | torch.device = "cuda"):
+    """``decoder_input`` of one point of the sweep with the realisations
+    ``main`` gives it: default_rng(SEED), every earlier point's draws made
+    first (without running their chains)."""
+    rng = np.random.default_rng(SEED)
+    for m, snrs in CASES.items():
+        for snr in snrs:
+            if (m, snr) == (mcs_idx, snr_db):
+                return decoder_input(m, snr, n_blocks, rng, device=device)
+            mcs, seg, a = _plan(m)
+            rng.integers(0, 2, (n_blocks, a), dtype=np.int8)
+            shape = (n_blocks * seg.c, seg.e[0] // mcs.qm)
+            rng.normal(size=shape)
+            rng.normal(size=shape)
+    raise ValueError(f"no point MCS {mcs_idx} at {snr_db} dB in the sweep")
 
 
 def run_point(mcs_idx: int, snr_db: float, n_blocks: int,

@@ -515,17 +515,20 @@ def test_wire_auto_small_lifting_size_on_card(cuda_device, bg, zc):
 def test_group_exit_kernel_on_waterfall_input(cuda_device):
     """The kernel's group exit on the waterfall codeblocks where the
     per-codeblock exit misses the batch rule: equal to the plain version in
-    one group and in groups of two (one more, cooperative launch each), and
-    decode("auto") on the card equals "layered" on the CPU."""
+    one group and in groups of two (num_iters resume launches each, no
+    sweep run twice), and decode("auto") on the card equals "layered" on
+    the CPU."""
     seg, x = _waterfall_input(GROUPS)
     xc = x.to(cuda_device)
     for group in (None, 2):
         before = cuda_build.LAUNCHES[decoder_cuda.KERNEL_GROUP_EXIT]
+        decoder_cuda.reset_executed_sweeps()
         got = decoder_cuda.decode_layered(xc, seg.bg, seg.zc, 8, wire=False,
                                           early_stop=True, strict=False,
                                           exit_group=group)
         torch.cuda.synchronize()
-        assert cuda_build.LAUNCHES[decoder_cuda.KERNEL_GROUP_EXIT] == before + 1
+        assert cuda_build.LAUNCHES[decoder_cuda.KERNEL_GROUP_EXIT] == before + 8
+        assert decoder_cuda.executed_sweeps(cuda_device) == int(got[2].sum())
         want = decoder_cuda.decode_layered_plain(x, seg.bg, seg.zc, 8, wire=False,
                                                  early_stop=True, strict=False,
                                                  exit_group=group)
@@ -559,3 +562,89 @@ def test_group_exit_kernel_matches_plain(cuda_device, wire, exit_group, snr_db, 
             assert torch.equal(g, w)
         if exit_group is None:
             assert len(set(got[2].tolist())) == 1
+
+
+def _parity_per_sweep(x, bg, zc, num_iters, wire):
+    """(B, num_iters) bool: whether each codeblock meets parity after each
+    sweep of the plain layered decode (no exit)."""
+    plan = decoder.get_decode_plan(bg, zc)
+    l, r = decoder.init_state(x, plan, wire)
+    out = []
+    for _ in range(num_iters):
+        decoder.sweep(l, r, bg, zc, decoder.DEFAULT_SCALING, wire)
+        out.append(decoder.check_parity(decoder.hard_decision(l), bg, zc))
+    return torch.stack(out, 1)
+
+
+def _round_groups(ok):
+    """Pairs of codeblock rows whose group exit (groups of two) takes 1, 2
+    and 3 resume rounds, {rounds: (a, b)}, from their parity after each
+    sweep ``ok`` (B, num_iters): the group's target is the later of the two
+    first sweeps that meet parity, and each round after the first follows
+    a target at which one of them misses it.  Candidates: the codeblocks
+    that meet parity and miss it later (flips), and one of each first
+    sweep."""
+    n = ok.shape[1]
+    first = [int(r.nonzero()[0]) + 1 if r.any() else 0 for r in ok]
+    flips = [i for i, f in enumerate(first) if f and not ok[i, f - 1:].all()]
+    reps = list({f: i for i, f in enumerate(first) if f}.values())
+    out = {}
+    for a in flips + reps:
+        for b in reps + flips:
+            t0 = max(first[a], first[b])
+            if a == b or not first[a] or not first[b]:
+                continue
+            s = next((s for s in range(t0, n + 1) if ok[a, s - 1] and ok[b, s - 1]), None)
+            if s is not None:
+                out.setdefault(s - t0 + 1, (a, b))
+    return {r: out[r] for r in (1, 2, 3) if r in out}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [True, False])
+def test_resumed_group_exit_rounds(cuda_device, wire):
+    """The group exit resumes each codeblock from its kept state, round
+    after round.  From 256 codeblocks of tools/bler_sweep.py's MCS 24 chain
+    at 16 dB (BG1 Zc 384, 12 sweeps; wire mode: the sweep's own point,
+    where codeblocks 122 and 236 flip one sweep apart; f32 mode: the draw
+    of default_rng(232), whose codeblock 51 misses parity twice after
+    meeting it) groups of two that take 1, 2 and 3 resume rounds, each
+    repeated into a batch of 1200 codeblocks, more than the card keeps
+    resident: the kernel equals the plain version (hard bits, ok, sweeps),
+    its sweeps per group are the rounds the rule takes, and its launches
+    ran exactly the sweeps it reports, none of them twice; the same with
+    the whole batch as one group."""
+    if wire:
+        seg, x = _waterfall_input(list(range(256)))
+        x = x.clamp(-64, 64).to(torch.int8).to(cuda_device)
+    else:
+        from srsran_edgeric_5g_tpu_torch.tools import bler_sweep
+        seg, _, x = bler_sweep.decoder_input(24, 16.0, 64, np.random.default_rng(232),
+                                             device=cuda_device)
+    n = 12
+    ok = _parity_per_sweep(x, seg.bg, seg.zc, n, wire).cpu()
+    pairs = _round_groups(ok)
+    assert sorted(pairs) == [1, 2, 3], pairs
+    rows = [i for p in pairs.values() for i in p] * (1200 // (2 * len(pairs)))
+    batch = x[rows].contiguous()
+    assert batch.shape[0] > decoder_cuda.blocks_per_sm(
+        decoder_cuda.MODE_WIRE if wire else decoder_cuda.MODE_F32, seg.bg, seg.zc) * \
+        torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    own = decoder_cuda.decode_layered_plain(batch, seg.bg, seg.zc, n, wire=wire,
+                                            early_stop=True, strict=False,
+                                            exit_group=1)[2]
+    for group in (2, None):
+        decoder_cuda.reset_executed_sweeps()
+        got = decoder_cuda.decode_layered(batch, seg.bg, seg.zc, n, wire=wire,
+                                          early_stop=True, strict=False,
+                                          exit_group=group)
+        torch.cuda.synchronize()
+        want = decoder_cuda.decode_layered_plain(batch, seg.bg, seg.zc, n, wire=wire,
+                                                 early_stop=True, strict=False,
+                                                 exit_group=group)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert decoder_cuda.executed_sweeps(cuda_device) == int(got[2].sum())
+        if group == 2:
+            rounds = (got[2] - own.reshape(-1, 2).amax(1).repeat_interleave(2) + 1)
+            assert sorted(set(rounds.tolist())) == sorted(pairs)

@@ -27,6 +27,7 @@ import random
 import subprocess
 import sys
 import threading
+import time
 import uuid
 
 import numpy as np
@@ -49,6 +50,10 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 # raise EADDRINUSE and the test draws another (tests/test_torch_runtime.py).
 APP_PORTS = (20000, 32000)
 APP_TRIES = 3
+# How long the lockstep agent re-sends one TTI's metrics for the muApp's
+# answer, and how often.
+RIC_WAIT_S = 30.0
+RIC_POLL_MS = 50
 # The blocked-imports child runs two scheduled slots (14.5-25.6 s under the
 # whole suite).
 CHILD_TIMEOUT_S = 150
@@ -206,16 +211,42 @@ def test_whole_run_equals_the_reference_app(capsys, tmp_path):
     assert f"TB success {res.ok_count}/{res.tb_count}, {res.layouts} compiled" in ref_out
 
 
+class _LockstepAgent(tedg.EdgericAgent):
+    """The port's agent with the muApp in step with the slot loop.
+
+    The app reads the policy last in the metrics sink of its last slot,
+    right after publishing that slot's metrics (EdgericMetricsSink.handle),
+    and a read that finds no answer clears the policy (fail-open).  So the
+    printed policy is the answer to the slot before, if it came within one
+    slot; and it may never come: both SUB sockets connect asynchronously
+    (the muApp's metrics SUB reconnects on ZMQ's 100 ms interval until the
+    app's main binds the PUB, and the agent's weights SUB connects inside
+    main), so the first TTIs' messages of either side can be dropped.  Here
+    each TTI's metrics go out again until an answer waits on the weights
+    socket: the read that follows finds one.  What the app computes, reads
+    and prints is unchanged."""
+
+    def send_metrics(self, reports) -> None:
+        tti, deadline = self.tti, time.monotonic() + RIC_WAIT_S
+        while True:
+            self.tti = tti
+            super().send_metrics(reports)
+            if self._sub_w.poll(RIC_POLL_MS) or time.monotonic() > deadline:
+                return
+
+
 def test_edgeric_in_the_default_loop(tmp_path, monkeypatch, capsys):
     """--edgeric without --sched: the CellProcessor's metrics hub publishes
     every slot through the port's agent to the port's RicMessenger, whose
     MuAppScheduler answers with max_cqi weights; the app prints the last
-    policy it read.  The endpoints are tmp_path's, never the defaults."""
+    policy it read.  The endpoints are tmp_path's, never the defaults; the
+    agent waits for each answer (_LockstepAgent), so every read of the
+    policy, the last one too, finds one."""
     pytest.importorskip("zmq")
     from srsran_edgeric_5g_tpu_torch.ric import MuAppScheduler, RicMessenger
     tag = uuid.uuid4().hex[:8]
     eps = tuple(f"ipc://{tmp_path}/{n}-{tag}" for n in ("metrics", "weights", "mcs"))
-    monkeypatch.setattr(tedg, "EdgericAgent", functools.partial(tedg.EdgericAgent, *eps))
+    monkeypatch.setattr(tedg, "EdgericAgent", functools.partial(_LockstepAgent, *eps))
     seen, stop = [], threading.Event()
     msgr = RicMessenger(*eps)
 
