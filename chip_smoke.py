@@ -22,7 +22,8 @@ Phases (any failure exits non-zero):
                and at BG2 Zc=40 (wire mode only), fixed sweeps, early stop
                per codeblock and the batch exit that decode() runs (a group
                exit over the whole batch): equal hard bits, ok, sweeps.
-  5. timing  — the DL+UL step chained over TIMED_STEPS steps; a per-stage
+  5. timing  — bench.py --data-only: its inputs and DL+UL step (the bench
+               module's), chained over its 30 steps, and its JSON line; a per-stage
                breakdown; the kernel alone (early stop, and fixed 0, 1 and 6
                sweeps: the slope is the cost of a sweep), its resident CTAs
                per SM, its plain version, its bound, and the sweeps its
@@ -30,13 +31,15 @@ Phases (any failure exits non-zero):
                they are the sum of the sweeps per codeblock; checked here and
                on every kernel_time path, the 4x4 data plane among them).
   6. full_cell — the full gNB slot (bench.py's bench_full_cell) at
-               FullCellConfig() (20 MHz, 106 PRB, 4 UEs, 64QAM) and S = 256:
-               UE UL generated once, 25 dB AWGN, one DL+UL step with the
-               HARQ carry and new_data = 1, bench.py's asserts (PUSCH CRC +
-               exact payload, exact F1 ACKs, F2 CSI valid and exact, PRACH
-               preamble 7 alone on every occasion); K1's launches are read
-               around this run.  Then FC_TIMED_STEPS chained steps (ms per
-               slot, x real time, samples/s), a per-channel breakdown, and
+               FullCellConfig() (20 MHz, 106 PRB, 4 UEs, 64QAM) and S = 256,
+               through the bench module's inputs (bench.py's default_rng(0)
+               draws) and chained step: UE UL generated once, 25 dB AWGN, one
+               DL+UL step with the HARQ carry and new_data = 1, bench.py's
+               asserts (PUSCH CRC + exact payload, exact F1 ACKs, F2 CSI
+               valid and exact, PRACH preamble 7 alone on every occasion);
+               K1's launches are read around this run.  Then bench.py's 30
+               chained steps (ms per slot, x real time, samples/s, and
+               bench.py's JSON line), a per-channel breakdown, and
                the device's busy time and idle share over chained steps
                (torch.profiler's device records).
   7. kernel_int8 — K2 (decode_int8) against its plain version on the card:
@@ -57,14 +60,29 @@ Phases (any failure exits non-zero):
                PRB, 64QAM r0.5, 4 layers through a 4x4 channel at 25 dB;
                bench.py's payload and CRC assert held against the reference
                decoder's own outcome at this point (check_wire_floor), K1's
-               launches, chained steps, a short breakdown.
+               launches, chained steps and
+               bench.py's line, a short breakdown; then the setup step on
+               bench.py's own draw (mimo_data_plane_bench_draw: its TBs at
+               the wire floor, passing TBs exact, the f32 decode recovering
+               every TB).
  10. qam256_full_cell — bench.py's --qam256 point: 256QAM r682.5/1024 both
                ways, ul_delay_spread_us = 1.0 (the TA + smoothing estimator),
                33 dB; as full_cell.
+ 10a. bench_modes — bench.py --clean, --no-csirs and --qam256 --chest=ls
+               (the modes no other phase times) through the bench module's
+               main in this process at S = 256, 30 steps: bench.py's asserts,
+               its JSON line, K1 once per step.
+ 10b. streaming — bench.py --streaming=S at S = 8, 16, 32, 64, depth 2, 400
+               batches each (bench_streaming: the full gNB slot with the HARQ
+               carry, batch k+1 issued before the host waits on batch k's
+               CUDA event): sustained x real time, p50 / p99 latency from
+               submit to result, compute ms per batch and the overhead, the
+               synchronising calls of one warm step (set_sync_debug_mode), the
+               device's idle share over a profiled window, bench.py's line.
  11. kernels on each new path — K1 against its plain version on that
                phase's real decoder input (early stop and fixed sweeps), its
                time (early stop; fixed 0, 1 and 6 sweeps), resident CTAs per
-               SM, its bound.
+               SM, its bound; the streaming path's at S = 8.
  12. hetero_cell — the per-UE channel processors through the scheduler's
                entry point, HeteroCellProcessor, at 20 MHz (106 PRB) with a
                4-UE grant set on the 8-PRB RBG grid (QPSK DFT-s-OFDM at BG2
@@ -178,13 +196,19 @@ Phases (any failure exits non-zero):
                path's exit group: the call, a 512-codeblock chunk or a TB)
                against its plain version on each path's decoder inputs, its
                ms, bound and sweeps per codeblock; the phases' seconds.
+ 28. entry — the single-device entry point (srsran_edgeric_5g_tpu_torch.
+               entry.entry(): the UL slot step of __graft_entry__.entry(), 52
+               PRB, 4 UEs x 12 PRB, 16QAM r0.4, on one slot of seeded noise)
+               on the card equal to the CPU: payload bits and tb_ok exact,
+               noise variance and CFO within ENTRY_RTOL of the peak.
 
 Between phases 5 and 6 (they reuse the slice phase's tensors):
-  5a. multi_cell — bench.py --cells=4: 4 carriers x 64 slots of the 20 MHz
+  5a. multi_cell — bench.py --cells=4 --sbatch=64 (the bench module's inputs
+               and chained step, and its JSON line): 4 carriers x 64 slots of the 20 MHz
                4-UE data plane, each carrier with its own RNTIs, through 25
                dB AWGN: multi_cell_dl_slot_batch, multi_cell_ul_slot_batch
                with K1 launched exactly once (counts read around the UL
-               call), every one of the 1024 TBs exact; TIMED_STEPS chained
+               call), every one of the 1024 TBs exact; 30 chained
                steps (ms per cell-slot beside the slice's ms per slot), the
                per-stage breakdown, the device profile; K1 on this path's
                decoder input with the other batched paths (phase 11).
@@ -222,18 +246,22 @@ import time
 
 SEED = 1234
 SNR_DB = 25.0
-S_BATCH = 256
-TIMED_STEPS = 20
-FC_TIMED_STEPS = 30      # bench.py's ITERS
-# bench.py --qam256: TS 38.214 Table 5.1.3.1-2 MCS 20 (Qm 8, R 682.5/1024)
-# both ways, the TA + smoothing PUSCH estimator, at 33 dB.
-QAM256_KW = dict(dl_modulation="qam256", ul_modulation="qam256",
-                 dl_target_rate=682.5 / 1024, ul_target_rate=682.5 / 1024,
-                 ul_delay_spread_us=1.0)
-QAM256_SNR_DB = 33.0
+S_BATCH = 256            # bench.py's --sbatch default
+# The bench modes that no phase below times, run through the bench module's
+# main (phase bench_modes); the others print bench.py's line from the phase
+# that times them.
+BENCH_MODES = (["--clean"], ["--no-csirs"], ["--qam256", "--chest=ls"])
+# bench.py --streaming=S: slots per batch of the streaming phase, the
+# batches of its profiled window, and the synchronising calls a streaming
+# step may still make (file:line, each listed in ROADMAP.md Queue C).
+STREAM_SLOTS = (8, 16, 32, 64)
+STREAM_PROFILE_BATCHES = 16
+HOST_SYNCS_KNOWN = ()
+# entry() on the card against the CPU: noise variance and CFO, of the peak.
+ENTRY_RTOL = 1e-4
 # At the 4x4 point the reference's wire decode leaves 0.24 % of the TBs
-# undecoded over 24,576 TBs (at most 5 of 1024 in one draw; ROADMAP.md
-# Queue C): a failure share above this bound is a fault.
+# undecoded over 24,576 TBs of chip_smoke's channel (at most 5 of 1024 in
+# one draw; ROADMAP.md Queue C): a failure share above this bound is a fault.
 WIRE_FLOOR_MAX_TB_SHARE = 0.01
 NUM_ITERS = 6
 # K1's exits held against the plain version, (early_stop, exit_group):
@@ -494,34 +522,34 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(sp, dec, dev, ctx):
+def bench_line(pb, argv, slot_ms, timing, desc) -> None:
+    """bench.py's JSON line for the mode ``argv`` from a phase's own timed
+    steps (``bench_modes`` runs the modes no phase times)."""
+    line = pb.result_line(pb.parse(argv).metric, slot_ms * 1e-3, timing)
+    emit("bench_line", argv=" ".join(argv), line=line, desc=desc)
+
+
+def phase_timing(sp, pb, dec, dev, ctx):
     import torch
     cell = ctx["cell"]
     t = cell.timing
     payloads, rntis, noise = ctx["payloads"], ctx["rntis"], ctx["noise"]
     s_batch = payloads.shape[0]
-
-    def step(eps):
-        td = sp.dl_slot_batch(payloads ^ eps, rntis, cell, device=dev)
-        res = sp.ul_slot_batch(td + noise, rntis, cell, device=dev)
-        return res[0][0, 0, 0] & 0, res[1]
-
-    eps = torch.zeros((), dtype=torch.int8, device=dev)
-    for _ in range(2):
-        eps, ok = step(eps)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        eps, ok = step(eps)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    check(bool(ok.all()), "timed steps: CRC")
-    slot_ms = dt / (TIMED_STEPS * s_batch) * 1e3
+    # bench.py --data-only: its inputs and chained step.
+    x = pb.data_plane_inputs(s_batch, 1, SNR_DB, dev)
+    step = pb.data_plane_step(x, dev)
+    _, state, _ = pb.chained(step, pb._start(dev), 2, dev)
+    torch.cuda.reset_peak_memory_stats()
+    res, _, dt = pb.chained(step, state, pb.ITERS, dev)
+    check(bool(res[1].all()), "timed steps: CRC")
+    slot_ms = dt / (pb.ITERS * s_batch) * 1e3
     slot_duration_ms = 1.0 / (1 << cell.mu)
-    emit("e2e", steps=TIMED_STEPS, slots_per_step=s_batch, seconds=dt,
+    emit("e2e", steps=pb.ITERS, slots_per_step=s_batch, seconds=dt,
          ms_per_slot=slot_ms, x_real_time=slot_duration_ms / slot_ms,
-         samples_per_s=TIMED_STEPS * s_batch * t.cp.total / dt,
+         samples_per_s=pb.ITERS * s_batch * t.cp.total / dt,
          srate=t.srate, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    bench_line(pb, ["--data-only"], slot_ms, t,
+               f"data-plane only, S={s_batch} x 1 cell(s), TBS {cell.derived_tbs()} x 4 UE")
 
     # Per-stage device time of one step (CUDA events, mean of 5).
     full = ctx["decoder_input"]
@@ -627,18 +655,6 @@ def kernel_bound(g, zc, total_sweeps, n_bytes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def mix_matrix(n, gen, dev):
-    """bench.py's static LxL spatial channel: 0.35 (N(0,1) + jN(0,1))/sqrt(2)
-    plus the DFT matrix / sqrt(L), from the seeded generator."""
-    import torch
-    a = torch.complex(torch.randn((n, n), generator=gen, device=dev),
-                      torch.randn((n, n), generator=gen, device=dev)) / math.sqrt(2)
-    k = torch.arange(n, device=dev, dtype=torch.float32)
-    ph = -2.0 * math.pi * torch.outer(k, k) / n
-    dft = torch.complex(torch.cos(ph), torch.sin(ph)) / math.sqrt(n)
-    return (0.35 * a + dft).to(torch.complex64)
-
-
 def device_profile(step_fn, n_prof: int, wall_ms: float) -> dict:
     """Device busy time per step from torch.profiler's device records (the
     union of their intervals) against the unprofiled wall time per step: the
@@ -675,78 +691,31 @@ def profile_summary(prof, n_prof: int, wall_ms: float) -> dict:
                 top_ms_per_step={k: v / n_prof / 1e3 for k, v in top})
 
 
-def full_cell_inputs(fcm, sp, dev, fc, snr_db):
-    """bench.py's full-cell inputs at S_BATCH slots from the seed: the DL
-    payloads, DCIs and MIBs, the UE UL (through ``mix_matrix`` at
-    fc.n_layers > 1) and its noise, the HARQ carry of zeros, new_data = 1,
-    and the gNB calls of the configuration."""
+def phase_full_cell(fcm, sp, pb, cuda_build, dec, dev, argv, tag):
+    """bench.py's mode ``argv`` of the full gNB slot (bench_full_cell, or
+    bench_full_cell_mimo) on the port, through the bench module's inputs
+    and chained step: bench.py's asserts, K1's launches, the chained timed
+    steps (and bench.py's line from them), the per-channel breakdown and
+    the device profile.  Phases ``<tag>``, ``<tag>_e2e``,
+    ``<tag>_breakdown_ms_per_step`` and ``<tag>_device_profile``."""
     import torch
+    mode = pb.parse(argv)
+    n_l = mode.args[1] if mode.fn is pb.bench_full_cell_mimo else 1
+    fc, snr_db, steps = fcm.FullCellConfig(n_layers=n_l, **mode.fc_kw), mode.args[-1], mode.iters
     mimo = fc.n_layers > 1
-    s, u, n_l = S_BATCH, fc.nof_ue, fc.n_layers
-    cell_u = fc.ul_cell()
-    cell_n, cell_s = ((fc.dl_cell_mimo(), fc.dl_cell_ssb_mimo()) if mimo
-                      else (fc.dl_cell(), fc.dl_cell_ssb()))
-    seg, rm = sp._plans(cell_u)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-
-    def bits(*shape):
-        return torch.randint(0, 2, shape, generator=gen, device=dev,
-                             dtype=torch.int8)
-
-    x = dict(cell_u=cell_u, cell_n=cell_n, cell_s=cell_s, seg=seg, rm=rm,
-             pay_n=bits(len(fc.norm_slots(s)), u, cell_n.derived_tbs()),
-             pay_s=bits(len(fc.ssb_slots(s)), u, cell_s.derived_tbs()),
-             dci=bits(s, 2 * u, fc.dci_bits), pbch=bits(len(fc.ssb_slots(s)), 24),
-             pay_u=bits(s, u, cell_u.derived_tbs()), ack=bits(s, u, 2),
-             csi=bits(len(fc.csi_slots(s)), u, fc.csi_bits))
-    if mimo:
-        x.update(gnb_dl=fcm.gnb_dl_slot_batch_mimo, gnb_ul=fcm.gnb_ul_slot_batch_mimo)
-        mix = mix_matrix(n_l, gen, dev)
-        x["ul"] = torch.einsum("pl,slt->spt", mix, fcm.ue_ul_slot_batch_mimo(
-            x["pay_u"], x["ack"], x["csi"], fc, s, device=dev))
-    else:
-        x.update(gnb_dl=fcm.gnb_dl_slot_batch, gnb_ul=fcm.gnb_ul_slot_batch)
-        x["ul"] = fcm.ue_ul_slot_batch(x["pay_u"], x["ack"], x["csi"], fc, s,
-                                       device=dev)
-    x.update(noise=awgn(x["ul"], snr_db, gen), ones=torch.ones((s, u), device=dev),
-             soft0=torch.zeros((s * u * seg.c, rm.n_cb), dtype=torch.int8,
-                               device=dev))
-    return x
-
-
-def phase_full_cell(fcm, sp, cuda_build, dec, dev, fc, tag, snr_db, steps):
-    """bench.py's bench_full_cell (or, at fc.n_layers > 1,
-    bench_full_cell_mimo) on the port: asserts, K1's launches, the chained
-    timed steps, the per-channel breakdown and the device profile.  Phases
-    ``<tag>``, ``<tag>_e2e``, ``<tag>_breakdown_ms_per_step`` and
-    ``<tag>_device_profile``."""
-    import torch
-    mimo = fc.n_layers > 1
-    s, u, n_l = S_BATCH, fc.nof_ue, fc.n_layers
+    s, u = S_BATCH, fc.nof_ue
     t = fc.timing
-    x = full_cell_inputs(fcm, sp, dev, fc, snr_db)
+    chain = pb.FullCellChain(fc, s, snr_db, dev)
+    x = chain.x
     cell_u, cell_n, cell_s, seg, rm = (x[k] for k in ("cell_u", "cell_n", "cell_s",
                                                        "seg", "rm"))
-    pay_n, pay_s, dci, pbch, pay_u, ack, csi = (
-        x[k] for k in ("pay_n", "pay_s", "dci", "pbch", "pay_u", "ack", "csi"))
+    pay_n, pay_s, dci, pbch = (x[k] for k in ("pay_n", "pay_s", "dci", "pbch"))
     gnb_dl, gnb_ul, ul, noise, ones, soft0 = (
         x[k] for k in ("gnb_dl", "gnb_ul", "ul", "noise", "ones", "soft0"))
-
-    def step(pn, eps, flip, soft):
-        """One full-cell DL TX + UL RX slot batch, chained as bench.py."""
-        td = gnb_dl(pn ^ eps, pay_s, dci, pbch, fc, s, device=dev)
-        dl_pow = (td.real ** 2 + td.imag ** 2).mean()
-        res = gnb_ul(ul + noise * flip, fc, s, soft_in=soft, new_data=ones,
-                     soft_flat=True, device=dev)
-        eps_next = (res["payload"][0, 0, 0] & 0) | (dl_pow > 1e30).to(torch.int8)
-        return res, eps_next, -flip, td
-
-    eps = torch.zeros((), dtype=torch.int8, device=dev)
-    flip = torch.ones((), device=dev)
     torch.cuda.synchronize()
     cuda_build.reset_launches()
     t0 = time.perf_counter()
-    res, eps, flip, td = step(pay_n, eps, flip, soft0)
+    res, td = chain(), chain.td
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
     first_s = time.perf_counter() - t0
@@ -755,16 +724,8 @@ def phase_full_cell(fcm, sp, cuda_build, dec, dev, fc, tag, snr_db, steps):
                                                 and torch.isfinite(td.imag).all()),
           f"{tag} DL samples {tuple(td.shape)}")
     ok = res["tb_ok"]
-    check(bool(ok.all()), f"{tag} PUSCH CRC failed: {int(ok.sum())}/{ok.numel()}")
-    check(torch.equal(res["payload"], pay_u), f"{tag} PUSCH payload mismatch")
-    check(torch.equal(res["ack_bits"], ack), f"{tag} PUCCH F1 ACK mismatch")
-    check(bool(res["csi_ok"].all()), f"{tag} PUCCH F2 CSI not valid")
-    check(torch.equal(res["csi_bits"], csi), f"{tag} PUCCH F2 CSI mismatch")
+    pb.full_cell_asserts(res, x)
     det = res["prach_detected"]
-    others = torch.ones(64, dtype=torch.bool, device=dev)
-    others[7] = False
-    check(bool(det[:, 7].all()) and not bool(det[:, others].any()),
-          f"{tag} PRACH detection wrong: {torch.nonzero(det).tolist()[:8]}")
     check(tuple(res["soft"].shape) == (s * u * seg.c, rm.n_cb)
           and res["soft"].dtype == torch.int8, f"{tag} flat HARQ carry")
     check(launches.get(dec.KERNEL, 0) > 0, f"{tag} launched no {dec.KERNEL} kernel")
@@ -779,27 +740,22 @@ def phase_full_cell(fcm, sp, cuda_build, dec, dev, fc, tag, snr_db, steps):
          prach_delay=sorted(set(res["prach_delay"][:, 7].tolist())))
 
     for _ in range(2):
-        res, eps, flip, _ = step(pay_n, eps, flip, res["soft"])
-    torch.cuda.synchronize()
+        chain()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        res, eps, flip, _ = step(pay_n, eps, flip, res["soft"])
-    _ = int(eps)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    check(bool(res["tb_ok"].all()), f"{tag} timed steps: CRC")
-    slot_ms = dt / (steps * s) * 1e3
+    slot_ms = chain.timed(steps) * 1e3
+    dt = slot_ms * 1e-3 * steps * s
+    check(bool(chain.res["tb_ok"].all()), f"{tag} timed steps: CRC")
     emit(f"{tag}_e2e", steps=steps, slots_per_step=s, seconds=dt,
          ms_per_slot=slot_ms, x_real_time=(1.0 / (1 << fc.mu)) / slot_ms,
          samples_per_s=t.cp.total / (slot_ms * 1e-3), srate=t.srate,
          peak_mem_bytes=torch.cuda.max_memory_allocated())
+    bench_line(pb, argv, slot_ms, t, f"full gNB slot, {n_l}x{n_l}, S={s}")
 
     # Per-channel device time of one step (CUDA events, mean of 5).
     from srsran_edgeric_5g_tpu_torch.ops import ofdm, prach
     from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder
     rntis = fcm._rntis(fc, dev)
-    rx = ul + noise
+    rx = pb._noisy(ul, noise, 1.0)
     grid = ofdm.demodulate_slot(td, t, scale=float(t.nfft))
     if mimo:
         rx_flat = rx.reshape(s * n_l, -1)
@@ -863,51 +819,27 @@ def phase_full_cell(fcm, sp, cuda_build, dec, dev, fc, tag, snr_db, steps):
     emit(f"{tag}_breakdown_ms_per_step", slots_per_step=s,
          **{k: cuda_ms(f, 5) for k, f in stages.items()})
 
-    def prof_step():
-        nonlocal res, eps, flip
-        res, eps, flip, _ = step(pay_n, eps, flip, res["soft"])
-
-    emit(f"{tag}_device_profile", **device_profile(prof_step, 3, slot_ms * s))
+    emit(f"{tag}_device_profile", **device_profile(chain, 3, slot_ms * s))
     return dict(decoder_input=full, launches=launches, bg=seg.bg, zc=seg.zc)
 
 
-def check_wire_floor(sp, dec, cell, rx, rntis, payloads, res, tag) -> int:
-    """bench.py's assert at the 4x4 point, held against the reference
-    decoder's own outcome there (ROADMAP.md Queue C: the JAX package's wire
-    decode, which K1 reproduces bit for bit, leaves some of this point's
-    codeblocks unconverged where its f32 layered min-sum decodes them all).
-    Every TB that passes CRC carries its exact payload; a TB fails only
-    where a codeblock of it never meets parity in the wire decoder, at most
-    WIRE_FLOOR_MAX_TB_SHARE of the TBs; and the f32 decoder, K1's f32 mode
-    on the same decoder input, recovers every TB's exact payload (so the
-    front delivered the information).  Returns the TBs that failed."""
+def mix_matrix(n, gen, dev):
+    """bench.py's static LxL spatial channel: 0.35 (N(0,1) + jN(0,1))/sqrt(2)
+    plus the DFT matrix / sqrt(L), from the seeded generator."""
     import torch
-    from srsran_edgeric_5g_tpu_torch.ops.ldpc import segmenter
-    pay_hat, ok = res[0], res[1]
-    check(torch.equal(pay_hat[ok], payloads[ok]),
-          f"{tag}: payload mismatch on a TB that passed CRC")
-    n_fail = int((~ok).sum())
-    if n_fail == 0:
-        return 0
-    check(n_fail <= WIRE_FLOOR_MAX_TB_SHARE * ok.numel(),
-          f"{tag}: {n_fail}/{ok.numel()} TBs failed CRC")
-    seg, _ = sp._plans(cell)
-    full = sp._decoder_input(sp._ul_front_mimo(rx, rntis, cell)[0], cell)
-    _, cb_ok, _ = dec.decode_layered(full, seg.bg, seg.zc, NUM_ITERS, wire=True,
-                                     early_stop=True)
-    check(torch.equal(cb_ok.reshape(-1, seg.c).all(dim=1).reshape(ok.shape), ok),
-          f"{tag}: a TB failed CRC with every codeblock meeting parity")
-    hard, _, _ = dec.decode_layered((full.float() / 6.0).contiguous(), seg.bg,
-                                    seg.zc, NUM_ITERS, wire=False, early_stop=True)
-    pay_f32, ok_f32 = segmenter.desegment_tb(hard, seg)
-    check(bool(ok_f32.all()) and torch.equal(pay_f32.reshape(payloads.shape), payloads),
-          f"{tag}: the f32 decoder does not recover every TB")
-    return n_fail
+    a = torch.complex(torch.randn((n, n), generator=gen, device=dev),
+                      torch.randn((n, n), generator=gen, device=dev)) / math.sqrt(2)
+    k = torch.arange(n, device=dev, dtype=torch.float32)
+    ph = -2.0 * math.pi * torch.outer(k, k) / n
+    dft = torch.complex(torch.cos(ph), torch.sin(ph)) / math.sqrt(n)
+    return (0.35 * a + dft).to(torch.complex64)
 
 
 def mimo_data_plane_inputs(sp, dev, n_l):
     """bench_mimo's cell and, from the seeded generator, its payloads, the
-    LxL channel and the noise: (cell, payloads, rntis, mix, noise)."""
+    LxL channel and the noise, as pb.mimo_inputs' dict.  (bench.py's own
+    draw is checked apart: at 4x4 the reference decoder leaves 3.6 % of its
+    TBs, ROADMAP.md Queue C.)"""
     import torch
     cell = sp.CellConfig(nof_prb=106, nfft=1536, nof_ue=4, prb_per_ue=26,
                          modulation="qam64", target_rate=0.5, n_layers=n_l)
@@ -918,36 +850,50 @@ def mimo_data_plane_inputs(sp, dev, n_l):
     mix = mix_matrix(n_l, gen, dev)
     noise = awgn(sp.dl_slot_batch_mimo(payloads, rntis, cell, device=dev),
                  SNR_DB, gen)
-    return cell, payloads, rntis, mix, noise
+    return dict(cell=cell, payloads=payloads, rntis=rntis, mix=mix, noise=noise)
 
 
-def phase_mimo_data_plane(sp, cuda_build, dec, dev, n_l):
-    """bench.py's bench_mimo: the 20 MHz data plane (106 PRB, 4 UEs x 26
-    PRB, 64QAM r0.5) at n_l layers through the LxL channel at 25 dB:
-    dl_slot_batch_mimo -> mix -> ul_slot_batch_mimo, payload-exact; K1's
-    launches; the chained step and a short breakdown."""
+def check_wire_floor(pb, res, rx, x, tag) -> int:
+    """bench.py's assert at the 4x4 point held against the reference
+    decoder's own outcome (pb.wire_floor: passing TBs exact, the f32 decode
+    recovers every TB), and on chip_smoke's channel also: a TB fails CRC
+    where, and only where, a codeblock of it never meets parity in the wire
+    decode, at most WIRE_FLOOR_MAX_TB_SHARE of the TBs.  Returns the TBs
+    that failed."""
+    n_fail, mismatch = pb.wire_floor(res, rx, x)
+    ok = res[1]
+    check(n_fail <= WIRE_FLOOR_MAX_TB_SHARE * ok.numel(),
+          f"{tag}: {n_fail}/{ok.numel()} TBs failed CRC")
+    check(mismatch == 0, f"{tag}: {mismatch} TBs' CRC outcome differs from "
+                         "their codeblocks' parity")
+    return n_fail
+
+
+def phase_mimo_data_plane(sp, pb, cuda_build, dec, dev, n_l):
+    """bench.py's bench_mimo (--mimo=n_l) through the bench module's
+    chained step: the 20 MHz data plane (106 PRB, 4 UEs x 26 PRB, 64QAM
+    r0.5) at n_l layers through an LxL channel at 25 dB:
+    dl_slot_batch_mimo -> mix -> ul_slot_batch_mimo, held to the reference
+    decoder's outcome (check_wire_floor); K1's launches; the chained step
+    (and bench.py's line from it) and a short breakdown.  Then the setup
+    step on bench.py's own draw (pb.mimo_inputs), held to the same outcome
+    with its failing TBs reported (phase mimo_data_plane_bench_draw)."""
     import torch
-    cell, payloads, rntis, mix, noise = mimo_data_plane_inputs(sp, dev, n_l)
+    x = mimo_data_plane_inputs(sp, dev, n_l)
+    cell, payloads, rntis, mix, noise = (x[k] for k in ("cell", "payloads", "rntis",
+                                                        "mix", "noise"))
     t = cell.timing
     s, u = S_BATCH, cell.nof_ue
     seg, rm = sp._plans(cell)
-
-    def step(eps, flip):
-        td = sp.dl_slot_batch_mimo(payloads ^ eps, rntis, cell, device=dev)
-        rx = torch.einsum("pl,slt->spt", mix, td) + noise * flip
-        res = sp.ul_slot_batch_mimo(rx, rntis, cell, device=dev)
-        return res, res[0][0, 0, 0] & 0, -flip, rx
-
-    eps = torch.zeros((), dtype=torch.int8, device=dev)
-    flip = torch.ones((), device=dev)
+    step = pb.mimo_step(x, dev)
+    eps, flip = pb._start(dev)
     torch.cuda.synchronize()
     cuda_build.reset_launches()
     res, eps, flip, rx = step(eps, flip)
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
     check(launches.get(dec.KERNEL, 0) > 0, f"the MIMO data plane launched no {dec.KERNEL}")
-    wire_fail = check_wire_floor(sp, dec, cell, rx, rntis, payloads, res,
-                                 "mimo_data_plane")
+    wire_fail = check_wire_floor(pb, res, rx, x, "mimo_data_plane")
     emit("mimo_data_plane", cell=f"106PRB nfft1536 4UEx26PRB qam64 r0.5 {n_l}x{n_l}",
          slots=s, snr_db=SNR_DB, tbs=cell.derived_tbs(), codeblocks=s * u * seg.c,
          bg=seg.bg, zc=seg.zc, e=rm.e, n_cb=rm.n_cb, launches=launches,
@@ -959,21 +905,30 @@ def phase_mimo_data_plane(sp, cuda_build, dec, dev, n_l):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(pb.ITERS):
         res, eps, flip, rx = step(eps, flip)
     _ = int(eps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    check_wire_floor(sp, dec, cell, rx, rntis, payloads, res, "mimo timed steps")
-    slot_ms = dt / (TIMED_STEPS * s) * 1e3
-    emit("mimo_data_plane_e2e", steps=TIMED_STEPS, slots_per_step=s, seconds=dt,
+    check_wire_floor(pb, res, rx, x, "mimo timed steps")
+    slot_ms = dt / (pb.ITERS * s) * 1e3
+    emit("mimo_data_plane_e2e", steps=pb.ITERS, slots_per_step=s, seconds=dt,
          ms_per_slot=slot_ms, x_real_time=(1.0 / (1 << cell.mu)) / slot_ms,
          samples_per_s=t.cp.total / (slot_ms * 1e-3), srate=t.srate,
          peak_mem_bytes=torch.cuda.max_memory_allocated())
+    bench_line(pb, [f"--mimo={n_l}"], slot_ms, t,
+               f"{n_l}x{n_l} MIMO data plane, S={s}, chip_smoke's channel draw, "
+               f"{wire_fail} TBs at the wire-decode floor")
+    xb = pb.mimo_inputs(s, n_l, SNR_DB, dev)
+    res_b, _, _, rx_b = pb.mimo_step(xb, dev)(*pb._start(dev))
+    failed, mismatch = pb.wire_floor(res_b, rx_b, xb)
+    emit("mimo_data_plane_bench_draw", slots=s, tbs_total=res_b[1].numel(),
+         tb_failed_wire_floor=failed, tb_crc_unlike_parity=mismatch)
+    del xb, res_b, rx_b
 
     from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder
     td = sp.dl_slot_batch_mimo(payloads, rntis, cell, device=dev)
-    rx = torch.einsum("pl,slt->spt", mix, td) + noise
+    rx = pb._noisy(torch.einsum("pl,slt->spt", mix, td), noise, 1.0)
     llr = sp._ul_front_mimo(rx, rntis, cell)[0]
     full = sp._decoder_input(llr, cell)
     stages = {
@@ -1036,9 +991,140 @@ def phase_path_kernel(dec, path, ctx):
          plain_wire_batch_exit_ms=plain_ms, bytes=n_bytes, bound_ms=bound_ms,
          bound_by=bound_by)
     return dict(launches=ctx["launches"].get(dec.KERNEL, 0),
-                group_exit_launches=ctx["launches"].get(dec.KERNEL_GROUP_EXIT, 0),
+                resume_launches=ctx["launches"].get(dec.KERNEL_RESUME, 0),
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, sweeps=total_sweeps, executed_sweeps=executed)
+
+
+def phase_bench_modes(pb, cuda_build, dec):
+    """The bench modes no other phase times (BENCH_MODES), each through
+    bench.main in this process at bench.py's defaults (S = 256, 30 steps):
+    bench.py's asserts on the setup step, its JSON line, K1 launched once
+    per step (counts read around each run)."""
+    import contextlib
+    import io
+    import torch
+    launches = {}
+    for argv in BENCH_MODES:
+        out, err = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = pb.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(cuda_build.LAUNCHES)
+        check(rc == 0, f"bench {argv}: rc {rc}")
+        line = json.loads(out.getvalue())
+        check(line["metric"] == pb.parse(argv).metric and line["value"] > 0,
+              f"bench {argv}: {line}")
+        check(counts.get(dec.KERNEL, 0) == pb.ITERS + 1,
+              f"bench {argv}: {counts} (one K1 launch per step expected)")
+        emit("bench_line", argv=" ".join(argv), line=line, desc=err.getvalue().strip(),
+             seconds=seconds, launches=counts)
+        launches["bench " + " ".join(argv)] = counts.get(dec.KERNEL, 0)
+    return launches
+
+
+def phase_streaming(sp, pb, cuda_build, dec, dev):
+    """bench.py --streaming=S at STREAM_SLOTS (bench_streaming: the full
+    gNB slot at FullCellConfig(), S slots per batch, STREAM_DEPTH deep,
+    STREAM_BATCHES batches, the HARQ carry chained): sustained x real time,
+    p50 / p99 batch latency from submit to the batch's CUDA event, the
+    program's compute ms per batch (30 deep-chained steps) and the submit
+    -> result overhead, the synchronising calls of one warm step
+    (pb.host_syncs; every one must be in HOST_SYNCS_KNOWN), the device's
+    idle share over a profiled window of STREAM_PROFILE_BATCHES batches
+    against the run's wall time per batch, and bench.py's line.  K1's
+    launches are read around each run (setup, batches and compute steps,
+    one each); the S = STREAM_SLOTS[0] step's decoder input is returned for
+    K1 against its plain version."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from srsran_edgeric_5g_tpu_torch.ops import ofdm
+    from srsran_edgeric_5g_tpu_torch.parallel import full_cell as fcm
+    launches, resumes, ctx = 0, 0, None
+    for s in STREAM_SLOTS:
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        run = pb.stream(s, SNR_DB, depth=pb.STREAM_DEPTH, n_batches=pb.STREAM_BATCHES,
+                        device=dev)
+        torch.cuda.synchronize()
+        counts = dict(cuda_build.LAUNCHES)
+        steps = 1 + pb.STREAM_BATCHES + pb.STREAM_COMPUTE_STEPS
+        check(counts.get(dec.KERNEL, 0) == steps,
+              f"streaming S={s}: {counts} (one K1 launch per step, {steps} steps)")
+        launches += counts.get(dec.KERNEL, 0)
+        resumes += counts.get(dec.KERNEL_RESUME, 0)
+        chain = run.chain
+        check(bool(chain.res["tb_ok"].all())
+              and torch.equal(chain.res["payload"], chain.x["pay_u"]),
+              f"streaming S={s}: PUSCH not recovered")
+        syncs = pb.host_syncs(chain)
+        unknown = [w for w in syncs if w.split(" ")[0] not in HOST_SYNCS_KNOWN]
+        check(not unknown, f"streaming S={s}: host syncs outside ROADMAP.md "
+                           f"Queue C: {unknown}")
+        wall_ms = run.wall_s / run.n_batches * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pb.stream_batches(chain, STREAM_PROFILE_BATCHES, run.depth, dev)
+            torch.cuda.synchronize()
+        prof_sum = profile_summary(prof, STREAM_PROFILE_BATCHES, wall_ms)
+        p50, p99 = run.percentile(50), run.percentile(99)
+        emit("streaming", slots_per_batch=s, depth=run.depth, batches=run.n_batches,
+             seconds=run.wall_s, ms_per_slot=run.slot_s * 1e3,
+             x_real_time=run.x_real_time, latency_p50_ms=p50, latency_p99_ms=p99,
+             latency_mean_ms=float(run.latency_ms.mean()),
+             latency_max_ms=float(run.latency_ms.max()),
+             compute_ms_per_batch=run.compute_ms, overhead_ms=p50 - run.compute_ms,
+             run_ahead_budget_ms=p99 + s, host_syncs_per_step=len(syncs),
+             host_syncs=syncs, launches=counts,
+             device_busy_ms_per_batch=prof_sum["device_busy_ms_per_step"],
+             idle_share=prof_sum["idle_share"],
+             device_ops_per_batch=prof_sum["device_ops_per_step"])
+        emit("bench_line", argv=f"--streaming={s}",
+             line=pb.result_line("streaming_full_gnb_slot_samples_per_sec",
+                                 run.slot_s, chain.fc.timing), desc=run.desc())
+        if ctx is None:
+            fc, x = chain.fc, chain.x
+            cell_u, seg = x["cell_u"], x["seg"]
+            rx = pb._noisy(x["ul"], x["noise"], chain.flip)
+            grid = ofdm.demodulate_slot(rx, fc.timing, scale=1.0)
+            llr = sp._ul_front(None, fcm._rntis(fc, dev), cell_u,
+                               rx_grid=grid)[0].reshape(s * fc.nof_ue, -1)
+            ctx = dict(decoder_input=sp._decoder_input(llr, cell_u), bg=seg.bg,
+                       zc=seg.zc, launches=counts)
+        del run, chain
+    ctx["launches"] = {dec.KERNEL: launches, dec.KERNEL_RESUME: resumes}
+    return ctx
+
+
+def phase_entry(pe, cuda_build, dec, dev):
+    """entry() (the UL slot step of __graft_entry__.entry(), 52 PRB, nfft
+    768, 4 UEs x 12 PRB, 16QAM r0.4, one slot of noise) on the card against
+    entry("cpu"): payload bits and tb_ok exact, noise variance and CFO
+    within ENTRY_RTOL of the peak; K1's launches read around it."""
+    import torch
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    fn, args = pe.entry(dev)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.LAUNCHES)
+    got = [v.cpu() for v in got]
+    fn_c, args_c = pe.entry("cpu")
+    want = fn_c(*args_c)
+    check(counts.get(dec.KERNEL, 0) == 1, f"entry: {counts} (one K1 launch expected)")
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "entry: payload bits or tb_ok differ between the card and the CPU")
+    rel = {}
+    for i, name in ((2, "noise_var"), (3, "cfo")):
+        rel[name] = float((got[i] - want[i]).abs().max() / want[i].abs().max())
+        check(rel[name] <= ENTRY_RTOL, f"entry {name}: {rel[name]} of the peak")
+    emit("entry", shapes=[list(v.shape) for v in got], tb_ok=got[1].tolist(),
+         rel_err=rel, carry_entries_differing=int((got[4] != want[4]).sum()),
+         carry_entries=got[4].numel(), launches=counts)
+    return counts.get(dec.KERNEL, 0)
 
 
 def tools_shape_llrs(encoder, dev, snr_db, gen):
@@ -2092,27 +2178,26 @@ KERNEL_NAME = re.compile(
     r"(layered_kernel|resume_kernel|int8_tiled_sweep_kernel)(?:ILi(\d)E)?")
 
 
-def phase_multi_cell(sp, cuda_build, dec, dev, tm):
-    """bench.py --cells=4 on the port: MC_CARRIERS carriers of the 20 MHz
+def phase_multi_cell(sp, pb, cuda_build, dec, dev, tm):
+    """bench.py --cells=4 --sbatch=64 on the port, through the bench
+    module's inputs and chained step: MC_CARRIERS carriers of the 20 MHz
     4-UE data plane (106 PRB, 4 UEs x 26 PRB, 64QAM r0.5), MC_SLOTS slots
     each, every carrier with its own RNTIs (0x4601 + arange(16) by
     carrier), through 25 dB AWGN: multi_cell_dl_slot_batch, then
     multi_cell_ul_slot_batch with K1's launches read around the UL call
     (one decode of every codeblock of every carrier); every TB exact.  Then
-    TIMED_STEPS chained DL+UL steps (ms per cell-slot beside the single-
-    carrier slice's), the per-stage breakdown and the device profile."""
+    bench.py's chained DL+UL steps (ms per cell-slot beside the single-
+    carrier slice's, and bench.py's line), the per-stage breakdown and the
+    device profile."""
     import torch
     from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder, segmenter
     cell = main_cell(sp)
     nc, s, u = MC_CARRIERS, MC_SLOTS, cell.nof_ue
     t = cell.timing
     seg, rm = sp._plans(cell)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
-    payloads = torch.randint(0, 2, (nc, s, u, cell.derived_tbs()), generator=gen,
-                             device=dev, dtype=torch.int8)
-    rntis = (torch.arange(nc * u, device=dev) + 0x4601).reshape(nc, u)
+    x = pb.data_plane_inputs(s, nc, SNR_DB, dev)
+    payloads, rntis, noise = x["payloads"], x["rntis"], x["noise"]
     td = sp.multi_cell_dl_slot_batch(payloads, rntis, cell, device=dev)
-    noise = awgn(td, SNR_DB, gen)
     rx = td + noise
     torch.cuda.synchronize()
     cuda_build.reset_launches()
@@ -2134,28 +2219,19 @@ def phase_multi_cell(sp, cuda_build, dec, dev, tm):
          tbs_total=ok.numel(), codeblocks=nc * s * u * seg.c, bg=seg.bg, zc=seg.zc,
          ul_launches=launches, iq_bytes=rx.numel() * rx.element_size())
 
-    def step(eps):
-        td = sp.multi_cell_dl_slot_batch(payloads ^ eps, rntis, cell, device=dev)
-        r = sp.multi_cell_ul_slot_batch(td + noise, rntis, cell, device=dev)
-        return r[0][0, 0, 0, 0] & 0, r[1]
-
-    eps = torch.zeros((), dtype=torch.int8, device=dev)
-    for _ in range(2):
-        eps, ok = step(eps)
-    torch.cuda.synchronize()
+    step = pb.data_plane_step(x, dev)
+    _, state, _ = pb.chained(step, pb._start(dev), 2, dev)
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        eps, ok = step(eps)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    check(bool(ok.all()), "multi_cell timed steps: CRC")
-    cell_slot_ms = dt / (TIMED_STEPS * nc * s) * 1e3
-    emit("multi_cell_e2e", steps=TIMED_STEPS, cell_slots_per_step=nc * s, seconds=dt,
+    res, state, dt = pb.chained(step, state, pb.ITERS, dev)
+    check(bool(res[1].all()), "multi_cell timed steps: CRC")
+    cell_slot_ms = dt / (pb.ITERS * nc * s) * 1e3
+    emit("multi_cell_e2e", steps=pb.ITERS, cell_slots_per_step=nc * s, seconds=dt,
          ms_per_cell_slot=cell_slot_ms, x_real_time=(1.0 / (1 << cell.mu)) / cell_slot_ms,
          single_carrier_ms_per_slot=tm["slice_ms_per_slot"],
          ratio_to_single_carrier=cell_slot_ms / tm["slice_ms_per_slot"],
          peak_mem_bytes=torch.cuda.max_memory_allocated())
+    bench_line(pb, [f"--cells={nc}", f"--sbatch={s}"], cell_slot_ms, t,
+               f"data-plane only, S={s} x {nc} cell(s), TBS {cell.derived_tbs()} x 4 UE")
 
     ci = sp._cell_ci(rntis, cell, nc, s)
     flat_pay = payloads.reshape(-1, payloads.shape[-1])
@@ -2180,8 +2256,8 @@ def phase_multi_cell(sp, cuda_build, dec, dev, tm):
          single_carrier_breakdown_ms_per_step=tm["slice_breakdown"])
 
     def prof_step():
-        nonlocal eps
-        eps, _ = step(eps)
+        nonlocal state
+        state = step(*state)[1:3]
 
     emit("multi_cell_device_profile",
          **device_profile(prof_step, 3, cell_slot_ms * nc * s))
@@ -2361,7 +2437,7 @@ def phase_ric_train(cuda_build, dec, dev):
                         r["weights"] is not None for r in rec.slots)))
 
 
-def phase_scale_out(fcm, sp, cuda_build, dec, dev):
+def phase_scale_out(fcm, sp, pb, cuda_build, dec, dev):
     """The scale-out on the card: a world of 1 over NCCL in this process
     runs parallel.dryrun's programs at 20 MHz and the full gNB slot (S =
     S_BATCH, the full_cell inputs) on a (1, 1) mesh against mesh=None (bits
@@ -2384,7 +2460,7 @@ def phase_scale_out(fcm, sp, cuda_build, dec, dev):
     from srsran_edgeric_5g_tpu_torch.parallel import dryrun, mesh as mm, multihost as mh
     t_phase = time.perf_counter()
     fc, s = fcm.FullCellConfig(), S_BATCH
-    x = full_cell_inputs(fcm, sp, dev, fc, SNR_DB)
+    x = pb.full_cell_inputs(fc, s, SNR_DB, dev)
     rx = x["ul"] + x["noise"]
     store = tempfile.mkdtemp()
     mm.init_distributed(num_processes=1, process_id=0, backend="nccl",
@@ -2608,7 +2684,7 @@ def wire_input(llrs):
 def k1_launches(cuda_build, dec):
     """(K1 calls, K1 group-exit launches) since the last reset."""
     return (cuda_build.LAUNCHES.get(dec.KERNEL, 0),
-            cuda_build.LAUNCHES.get(dec.KERNEL_GROUP_EXIT, 0))
+            cuda_build.LAUNCHES.get(dec.KERNEL_RESUME, 0))
 
 
 def k1_path(rows, launches):
@@ -2617,7 +2693,7 @@ def k1_path(rows, launches):
     check(all(r["equal"] for r in rows), f"K1 != plain on a waterfall input: "
           f"{[{k: v for k, v in r.items() if k != 'plain'} for r in rows if not r['equal']][:2]}")
     n = sum(r["codeblocks"] for r in rows)
-    return dict(launches=launches[0], group_exit_launches=launches[1],
+    return dict(launches=launches[0], resume_launches=launches[1],
                 max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
                 bound_ms=sum(r["bound_ms"] for r in rows),
@@ -2836,7 +2912,7 @@ def phase_validation(cuda_build, dec, dev):
         if out is not None:
             per_path[name] = out
     emit("validation", seconds=time.perf_counter() - t0, phase_seconds=seconds,
-         per_path={k: {f: v[f] for f in ("launches", "group_exit_launches",
+         per_path={k: {f: v[f] for f in ("launches", "resume_launches",
                                          "mean_sweeps", "ms", "bound_ms")}
                    for k, v in per_path.items()})
     return per_path
@@ -2899,7 +2975,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from srsran_edgeric_5g_tpu_torch import cuda_build
+        from srsran_edgeric_5g_tpu_torch import bench as pb, cuda_build, entry as pe
         from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder_cuda, encoder
         from srsran_edgeric_5g_tpu_torch.parallel import full_cell as fcm
         from srsran_edgeric_5g_tpu_torch.parallel import slot_pipeline as sp
@@ -2926,29 +3002,30 @@ def main() -> int:
           f"main path launched no {decoder_cuda.KERNEL} kernel")
     phase_small(sp, dev)
     max_err = phase_kernels(sp, decoder_cuda, encoder, dev, ctx)
-    tm = phase_timing(sp, decoder_cuda, dev, ctx)
+    tm = phase_timing(sp, pb, decoder_cuda, dev, ctx)
     # bench.py --cells=4: four carriers in one slot batch, one K1 launch per
     # UL step; then the modules of this slice without a kernel.
-    mc = phase_multi_cell(sp, cuda_build, decoder_cuda, dev, tm)
+    mc = phase_multi_cell(sp, pb, cuda_build, decoder_cuda, dev, tm)
     phase_fronthaul(sp, dev, ctx)
     phase_time_block(dev)
     phase_decode_schedules(sp, ctx)
-    fcx = phase_full_cell(fcm, sp, cuda_build, decoder_cuda, dev,
-                          fcm.FullCellConfig(), "full_cell", SNR_DB, FC_TIMED_STEPS)
+    fcx = phase_full_cell(fcm, sp, pb, cuda_build, decoder_cuda, dev, [], "full_cell")
     k2 = phase_kernel_int8(decoder_cuda, encoder, cuda_build, dev,
                            fcx["decoder_input"])
     # This slice's configurations of the main path: bench.py --mimo-full=2,
     # --mimo=4 and --qam256; K1 on each one's real decoder input.
     paths = {
-        "mimo_full_cell": phase_full_cell(
-            fcm, sp, cuda_build, decoder_cuda, dev, fcm.FullCellConfig(n_layers=2),
-            "mimo_full_cell", SNR_DB, FC_TIMED_STEPS),
-        "mimo_data_plane": phase_mimo_data_plane(sp, cuda_build, decoder_cuda, dev, 4),
-        "qam256_full_cell": phase_full_cell(
-            fcm, sp, cuda_build, decoder_cuda, dev, fcm.FullCellConfig(**QAM256_KW),
-            "qam256_full_cell", QAM256_SNR_DB, FC_TIMED_STEPS),
+        "mimo_full_cell": phase_full_cell(fcm, sp, pb, cuda_build, decoder_cuda, dev,
+                                          ["--mimo-full=2"], "mimo_full_cell"),
+        "mimo_data_plane": phase_mimo_data_plane(sp, pb, cuda_build, decoder_cuda, dev, 4),
+        "qam256_full_cell": phase_full_cell(fcm, sp, pb, cuda_build, decoder_cuda, dev,
+                                            ["--qam256"], "qam256_full_cell"),
     }
     paths["multi_cell"] = mc
+    # bench.py's remaining modes, then its streaming mode (K1 on the
+    # S = 8 step's decoder input).
+    bench_launches = phase_bench_modes(pb, cuda_build, decoder_cuda)
+    paths["streaming"] = phase_streaming(sp, pb, cuda_build, decoder_cuda, dev)
     per_path = {name: phase_path_kernel(decoder_cuda, name, path)
                 for name, path in paths.items()}
     # The per-UE channel processors: K1 in wire mode per UE and
@@ -2981,9 +3058,11 @@ def main() -> int:
     phase_ric_train(cuda_build, decoder_cuda, dev)
     # The scale-out: the mesh path as a world of 1 over NCCL, the worker as
     # 2 processes over gloo; K1 on one rank's codeblock share.
-    per_path["scale_out"] = phase_scale_out(fcm, sp, cuda_build, decoder_cuda, dev)
+    per_path["scale_out"] = phase_scale_out(fcm, sp, pb, cuda_build, decoder_cuda, dev)
     # The validation entry points: K1 at full sweeps on waterfall input.
     per_path.update(phase_validation(cuda_build, decoder_cuda, dev))
+    # The single-device entry point.
+    entry_launches = phase_entry(pe, cuda_build, decoder_cuda, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     zc40_f32, _ = synthetic_wire(encoder, dev, 2, 40, 64, 1.5, gen)
     zc40 = phase_per_ue_kernel(decoder_cuda, "synthetic",
@@ -2997,16 +3076,18 @@ def main() -> int:
     src = "srsran_edgeric_5g_tpu_torch/csrc/ldpc_layered.cu"
     launches_per_path = {"data_plane": ctx["launches"].get(decoder_cuda.KERNEL, 0),
                          "full_cell": fcx["launches"].get(decoder_cuda.KERNEL, 0),
-                         **{k: v["launches"] for k, v in per_path.items()}}
+                         **{k: v["launches"] for k, v in per_path.items()},
+                         **bench_launches, "entry": entry_launches}
     check(all(n > 0 for n in launches_per_path.values()),
           f"a path launched no K1: {launches_per_path}")
     kernels = [{
         "name": decoder_cuda.KERNEL, "route": "cuda", "source": src,
         "replaces": "srsran_edgeric_5g_tpu/ops/ldpc/decoder_pallas.py:224",
         # K1 calls; a call with early stop over more than one codeblock
-        # also launches group_exit_kernel, counted apart.
+        # also launches resume_kernel (the group exit's rounds), counted
+        # apart.
         "launches": fcx["launches"].get(decoder_cuda.KERNEL, 0),
-        "group_exit_launches": fcx["launches"].get(decoder_cuda.KERNEL_GROUP_EXIT, 0),
+        "resume_launches": fcx["launches"].get(decoder_cuda.KERNEL_RESUME, 0),
         "max_abs_err": max(max_err, zc40["max_abs_err"],
                            *(v["max_abs_err"] for v in per_path.values())),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],

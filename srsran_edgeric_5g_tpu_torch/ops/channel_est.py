@@ -23,6 +23,8 @@ import math
 import numpy as np
 import torch
 
+from ..device import host_constant
+
 
 @functools.lru_cache(maxsize=None)
 def _interp_weights(pilot_pos: tuple, nsubc: int) -> tuple[np.ndarray, np.ndarray]:
@@ -75,8 +77,8 @@ def _average_pilots(rx_pilots: torch.Tensor, ref_pilots: torch.Tensor,
         dt = float(dmrs_symbol_times_s[-1] - dmrs_symbol_times_s[0])
         cfo = cfo_estimate(h_ls, dt)
         if compensate_cfo:
-            t = torch.as_tensor(np.asarray(dmrs_symbol_times_s, dtype=np.float32),
-                                device=h_ls.device)
+            t = host_constant(np.asarray(dmrs_symbol_times_s, dtype=np.float32),
+                              h_ls.device)
             ph = (-2.0 * math.pi) * cfo[..., None] * t   # float32, as the reference
             h_ls = h_ls * torch.polar(torch.ones_like(ph), ph)[..., None]
 
@@ -201,8 +203,7 @@ def estimate_port_ta(rx_pilots: torch.Tensor, ref_pilots: torch.Tensor,
     guard_s = 0.3e-6
     t_c = ta if delay_spread_s is None else ta + delay_spread_s / 2
     two_pi_scs = float(np.float32(2.0 * np.pi * scs_hz))
-    pil_k = torch.as_tensor(np.asarray(pilot_subcarriers, dtype=np.float32),
-                            device=dev)
+    pil_k = host_constant(np.asarray(pilot_subcarriers, dtype=np.float32), dev)
     ph = (two_pi_scs * t_c)[..., None] * pil_k
     h_flat = h_p * torch.polar(torch.ones_like(ph), ph)
 

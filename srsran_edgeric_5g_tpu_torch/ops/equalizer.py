@@ -26,6 +26,9 @@ import functools
 
 import torch
 
+# The equalised noise variance of an RE with no usable port.
+INFINITY = torch.tensor(float("inf"), dtype=torch.float32)
+
 
 def _port_validity(h: torch.Tensor, noise_var: torch.Tensor) -> torch.Tensor:
     h_norm = h.real ** 2 + h.imag ** 2

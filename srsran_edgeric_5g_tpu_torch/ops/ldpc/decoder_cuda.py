@@ -57,7 +57,7 @@ KERNEL_INT8 = "ldpc_int8"       # K2's launch counter
 # K1's group exit: each launch of its resume kernel (a round; num_iters per
 # call over one rank), counted apart from K1's one per call of
 # decode_layered.
-KERNEL_GROUP_EXIT = "ldpc_layered.group_exit"
+KERNEL_RESUME = "ldpc_layered.resume"
 MODE_F32, MODE_WIRE, MODE_INT8 = 0, 1, 2   # the kernel's template modes
 INT8_CLAMP = 120  # decoder_pallas.LLR_CLAMP: K2's message clip
 MIN_ZC = 64      # decoder_pallas.MIN_ZC: the f32 and int8 modes' Zc floor
@@ -191,7 +191,7 @@ def _launch(llrs, mode, bg, zc, num_iters, scaling, exit_group, strict=True,
     launch).  ``exit_group`` 0 runs every sweep, 1 stops each codeblock at
     its own zero syndrome, g > 1 stops each group of g consecutive
     codeblocks together: in K1's modes by the group exit's resume rounds
-    (each launch counted under ``KERNEL_GROUP_EXIT``), for K2 by the tiled
+    (each launch counted under ``KERNEL_RESUME``), for K2 by the tiled
     path (one launch per sweep, per-tile exit).  ``groups`` (K1, process
     groups of more than one rank) extends the group, the whole local batch,
     over their ranks (``_rounds_over_ranks``).  ``strict=False`` gives the
@@ -247,13 +247,13 @@ def _launch(llrs, mode, bg, zc, num_iters, scaling, exit_group, strict=True,
             rc = lib.ldpc_layered_decode(llrs.data_ptr(), mode, *state, rounds,
                                          stream)
         if rc == 0 and grouped and b:
-            cuda_build.LAUNCHES[KERNEL_GROUP_EXIT] += rounds
+            cuda_build.LAUNCHES[KERNEL_RESUME] += rounds
 
         def resume(r):
             if not b:
                 return 0
             out = lib.ldpc_layered_resume(mode, *state, r, stream)
-            cuda_build.LAUNCHES[KERNEL_GROUP_EXIT] += out == 0
+            cuda_build.LAUNCHES[KERNEL_RESUME] += out == 0
             return out
 
         if rc == 0 and groups:

@@ -132,7 +132,6 @@ def rate_dematch(llrs: torch.Tensor, plan: RateMatchPlan,
         buf.index_add_(1, idx, llrs.to(dtype))
     if saturate:
         buf = torch.clamp(buf, -FILLER_LLR, FILLER_LLR)
-    buf = torch.where(filler, torch.tensor(FILLER_LLR, dtype=dtype,
-                                           device=buf.device), buf)
+    buf = buf.masked_fill(filler, FILLER_LLR)
     return torch.cat([buf.new_zeros((b, 2 * zc)), buf,
                       buf.new_zeros((b, g.n_full - 2 * zc - plan.n_cb))], dim=-1)

@@ -24,6 +24,7 @@ RANGE_LIMIT_PSK = 24.0   # BPSK/QPSK
 LLR_MAX = 120
 
 QM = {"bpsk": 1, "qpsk": 2, "qam16": 4, "qam64": 6, "qam256": 8}
+NAME_BY_QM = {v: k for k, v in QM.items()}
 
 
 @functools.lru_cache(maxsize=None)

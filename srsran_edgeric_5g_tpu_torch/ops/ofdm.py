@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import host_constant
 from ..ran.numerology import SlotTiming
 
 
@@ -88,7 +89,7 @@ def modulate_slot(grid: torch.Tensor, timing: SlotTiming,
     x = torch.zeros((*grid.shape[:-1], nfft), dtype=torch.complex64, device=dev)
     x[..., _subcarrier_bins(nsubc, nfft, dev)] = grid.to(torch.complex64)
     coef = phase_compensation(timing, center_freq_hz, True, slot_in_subframe)
-    coefs = torch.as_tensor(coef * np.complex64(scale), device=dev)
+    coefs = host_constant(coef * np.complex64(scale), dev)
     td = _dft(x, inverse=True) * float(np.float32(nfft))  # FFTW backward
     td = td * coefs[:, None]
     flat = td.reshape(*td.shape[:-2], nsymb * nfft)
@@ -112,11 +113,11 @@ def demodulate_slot(samples: torch.Tensor, timing: SlotTiming,
     dev = samples.device
     seg = samples[..., _data_gather_index(nfft, timing.cp.cp, window_offset, dev)]
     coef = phase_compensation(timing, center_freq_hz, False, slot_in_subframe)
-    coefs = torch.as_tensor(coef * np.complex64(scale), device=dev)
+    coefs = host_constant(coef * np.complex64(scale), dev)
     fd = _dft(seg, inverse=False).to(torch.complex64)
     fd = fd * coefs[:, None]
     if window_offset:
         omega = 2.0 * np.pi * window_offset / nfft
         ramp = np.exp(1j * omega * np.arange(nfft)).astype(np.complex64)
-        fd = fd * torch.as_tensor(ramp, device=dev)
+        fd = fd * host_constant(ramp, dev)
     return fd[..., _subcarrier_bins(nsubc, nfft, dev)]

@@ -237,6 +237,15 @@ def _bins(info: PrachOfdmInfo, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(k, device=device)
 
 
+def _fft(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """torch.fft over the last dim; a batch of no occasions (a slot batch
+    shorter than the PRACH period) passes through, since the FFT libraries
+    refuse an empty plan."""
+    if x.numel() == 0:
+        return x
+    return (torch.fft.ifft if inverse else torch.fft.fft)(x, dim=-1)
+
+
 def ofdm_demodulate_prach(samples: torch.Tensor,
                           info: PrachOfdmInfo) -> torch.Tensor:
     """(..., cp + n_reps*dft) samples -> frequency-domain preamble: (..., L_RA)
@@ -246,7 +255,7 @@ def ofdm_demodulate_prach(samples: torch.Tensor,
                    info.cp_samples + info.n_reps * info.dft_size]
     if info.n_reps > 1:
         body = body.reshape(*body.shape[:-1], info.n_reps, info.dft_size)
-    fd = torch.fft.fft(body, dim=-1).to(torch.complex64)
+    fd = _fft(body, inverse=False).to(torch.complex64)
     return fd[..., _bins(info, samples.device)] * float(
         np.float32(1.0 / np.sqrt(info.dft_size)))
 
@@ -301,7 +310,7 @@ def detect_batch(rx_freq: torch.Tensor, cfg: PrachConfig, threshold: float = 20.
     detected): per-root correlation by IDFT, each preamble's peak over its
     own N_cs zone against the occasion's mean correlation power."""
     root_conj, rows, zone = _detect_tables(cfg, rx_freq.device)
-    corr_t = torch.fft.ifft(rx_freq[:, None, :] * root_conj, dim=-1)
+    corr_t = _fft(rx_freq[:, None, :] * root_conj, inverse=True)
     power = corr_t.abs() ** 2                               # (B, R, L)
     floor = power.mean(dim=(1, 2))[:, None] + 1e-30
     power2 = torch.cat([power, power], dim=-1)              # wrap-around

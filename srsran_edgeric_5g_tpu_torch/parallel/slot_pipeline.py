@@ -55,7 +55,7 @@ import math
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import host_constant, resolve_device
 from ..ops import channel_est, equalizer, modulation, ofdm, sequences
 from ..ops import dmrs as dmrs_mod
 from ..ops.ldpc import decoder, encoder, rate_match, segmenter
@@ -295,10 +295,10 @@ def _dl_grid(syms: torch.Tensor, cell: CellConfig,
     dev = syms.device
     grid = torch.zeros((*lead, t.nsymb, t.nof_subc), dtype=torch.complex64,
                        device=dev)
-    grid[..., list(cell.data_symbols), band0:band0 + span] = band
+    grid[..., host_constant(cell.data_symbols, dev), band0:band0 + span] = band
     p0 = 6 * cell.first_prb
     pil = _dmrs_full_band(cell, dev)[:, p0:p0 + span // 2]
-    grid[..., list(cell.dmrs_symbols), band0:band0 + span:2] = (
+    grid[..., host_constant(cell.dmrs_symbols, dev), band0:band0 + span:2] = (
         pil * float(np.float32(dmrs_scale)))
     for l, row in (add_rows or {}).items():
         grid[..., l, :] += row.to(torch.complex64)
@@ -430,7 +430,7 @@ def _ul_front(rx_samples, rntis: torch.Tensor | None, cell: CellConfig,
     if not (span_pat.subcarriers == np.arange(0, u * w, 2)).all():
         raise ValueError("pipeline assumes type-1 port-0 DM-RS (even subcarriers)")
 
-    rx_p = band[:, list(cell.dmrs_symbols), 0::2]             # (S, ndmrs, span/2)
+    rx_p = band[:, host_constant(cell.dmrs_symbols, dev), 0::2]  # (S, ndmrs, span/2)
     rx_p = rx_p.reshape(s, ndmrs, u, npil_ue).permute(0, 2, 1, 3)
     rx_p = rx_p.reshape(s * u, ndmrs, npil_ue)
     # Undo the TS 38.214 3 dB DM-RS boost on the RX pilots: the LS
@@ -439,7 +439,7 @@ def _ul_front(rx_samples, rntis: torch.Tensor | None, cell: CellConfig,
     p0 = 6 * cell.first_prb
     ref_p = pilots[:, p0:p0 + len(span_pat.subcarriers)]
     ref_p = ref_p.reshape(ndmrs, u, npil_ue).permute(1, 0, 2).repeat(s, 1, 1)
-    y = band[:, list(cell.data_symbols)]
+    y = band[:, host_constant(cell.data_symbols, dev)]
     y = y.reshape(s, ndata, u, w).permute(0, 2, 1, 3).reshape(s * u, ndata, w)
 
     times_opt = times if ndmrs > 1 else None
@@ -461,9 +461,9 @@ def _ul_front(rx_samples, rntis: torch.Tensor | None, cell: CellConfig,
     # symbol still carries e^{j2pi*cfo*t_l}: remove it (float32 phase, as
     # the reference).
     if ndmrs > 1:
-        t_data = torch.as_tensor(
+        t_data = host_constant(
             np.asarray([t.cp.data_starts[l] for l in cell.data_symbols],
-                       np.float32) / np.float32(t.srate), device=dev)
+                       np.float32) / np.float32(t.srate), dev)
         ph = float(np.float32(-2.0 * np.pi)) * cfo[:, None] * t_data
         y = y * torch.complex(torch.cos(ph), torch.sin(ph))[:, :, None]
 
@@ -680,8 +680,8 @@ def dl_slot_batch_mimo(payloads, rntis, cell: CellConfig, rv: int = 0,
     band = m5.permute(0, 4, 2, 1, 3).reshape(s, n_l, ndata, span)
     grid = torch.zeros((s, n_l, t.nsymb, t.nof_subc), dtype=torch.complex64,
                        device=dev)
-    grid[:, :, list(cell.data_symbols), band0:band0 + span] = band
-    grid[:, :, list(cell.dmrs_symbols)] = _dmrs_rows_mimo(cell, dev)
+    grid[:, :, host_constant(cell.data_symbols, dev), band0:band0 + span] = band
+    grid[:, :, host_constant(cell.dmrs_symbols, dev)] = _dmrs_rows_mimo(cell, dev)
     if extra_rows is not None:
         grid[:, 0] += extra_rows.to(torch.complex64)
     if not return_grid:
@@ -761,7 +761,7 @@ def _ul_front_mimo(rx_samples, rntis: torch.Tensor, cell: CellConfig,
             raise ValueError("pipeline assumes type-1 DM-RS (CDM group g on "
                              "subcarriers g::2)")
         npil_ue = npil // u
-        rx_p = band[:, :, list(cell.dmrs_symbols), grp::2]   # (S, P, ndmrs, npil)
+        rx_p = band[:, :, host_constant(cell.dmrs_symbols, dev), grp::2]  # (S, P, ndmrs, npil)
         rx_p = rx_p.reshape(s * p_rx, ndmrs, u, npil_ue).transpose(1, 2)
         ref = pilots[:, p0:p0 + npil].reshape(ndmrs, u, npil_ue).transpose(0, 1)
         raw = (rx_p * torch.conj(ref)).reshape(s * p_rx * u, ndmrs, npil_ue)
@@ -780,13 +780,13 @@ def _ul_front_mimo(rx_samples, rntis: torch.Tensor, cell: CellConfig,
     cfo = (torch.angle(torch.sum(sum(cfos), dim=1))          # (S, U)
            / float(np.float32(2.0 * np.pi)) / dt).to(torch.float32)
 
-    y = band[:, :, list(cell.data_symbols)].reshape(s, p_rx, ndata, u, w)
+    y = band[:, :, host_constant(cell.data_symbols, dev)].reshape(s, p_rx, ndata, u, w)
     # The pilots were derotated by their symbol times; each data symbol
     # still carries e^{j2pi*cfo*t_l} (float32 phase, as the reference).
     if ndmrs > 1:
-        t_data = torch.as_tensor(
+        t_data = host_constant(
             np.asarray([t.cp.data_starts[l] for l in cell.data_symbols],
-                       np.float32) / np.float32(t.srate), device=dev)
+                       np.float32) / np.float32(t.srate), dev)
         ph = float(np.float32(-2.0 * np.pi)) * cfo[:, None, :] \
             * t_data[None, :, None]                            # (S, n, U)
         y = y * torch.complex(torch.cos(ph), torch.sin(ph))[:, None, :, :, None]

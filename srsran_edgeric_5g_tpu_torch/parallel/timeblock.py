@@ -13,7 +13,8 @@ the first device.
 
 The device list takes the place of the reference's one-axis mesh; entries
 may repeat, so several blocks can share one card.  No collective library
-is needed: the halo is one device-to-device copy per block.
+is needed: the halo is one device-to-device copy per block.  So the port
+has no ``TIME_AXIS``: the stream takes a device list, not a mesh axis.
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ from fractions import Fraction
 N_SC_PER_PRB = 12
 NSYMB_PER_SLOT_NORMAL = 14
 NSYMB_PER_SLOT_EXTENDED = 12
+NRE = N_SC_PER_PRB  # resource elements per PRB per symbol
 
 
 def scs_hz(mu: int) -> int:

@@ -9,13 +9,17 @@ import numpy as np
 import pytest
 import torch
 
-from srsran_edgeric_5g_tpu.ops import crc as jcrc, modulation as jmod
+import jax.numpy as jnp
+
+from srsran_edgeric_5g_tpu.ops import crc as jcrc, equalizer as jequ, modulation as jmod
 from srsran_edgeric_5g_tpu.ops.ldpc import encoder as jenc
 from srsran_edgeric_5g_tpu.ops.polar import code as jcode, encoder as jpenc
+from srsran_edgeric_5g_tpu.ran import numerology as jnum
 from srsran_edgeric_5g_tpu.utils import bits as jbits
-from srsran_edgeric_5g_tpu_torch.ops import crc as tcrc, modulation as tmod
+from srsran_edgeric_5g_tpu_torch.ops import crc as tcrc, equalizer as tequ, modulation as tmod
 from srsran_edgeric_5g_tpu_torch.ops.ldpc import encoder as tenc
 from srsran_edgeric_5g_tpu_torch.ops.polar import code as tcode, encoder as tpenc
+from srsran_edgeric_5g_tpu_torch.ran import numerology as tnum
 from srsran_edgeric_5g_tpu_torch.utils import bits as tbits
 
 
@@ -78,5 +82,20 @@ def test_pam_levels(m):
         idx = np.arange(1 << m)
         bits = ((idx[:, None] >> np.arange(m - 1, -1, -1)) & 1).astype(np.int8)
         qam = np.stack([bits, bits], axis=-1).reshape(len(idx), 2 * m)
-        sym = tmod.modulate(torch.as_tensor(qam), jmod.NAME_BY_QM[2 * m]).numpy()
+        sym = tmod.modulate(torch.as_tensor(qam), tmod.NAME_BY_QM[2 * m]).numpy()
         np.testing.assert_allclose(sym[:, 0].real, got, rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["NAME_BY_QM", "NRE", "INFINITY"])
+def test_public_constants(name):
+    """modulation.NAME_BY_QM, numerology.NRE and equalizer.INFINITY (float32
+    infinity) equal the reference's."""
+    if name == "NAME_BY_QM":
+        assert tmod.NAME_BY_QM == jmod.NAME_BY_QM
+        assert all(tmod.QM[tmod.NAME_BY_QM[qm]] == qm for qm in tmod.NAME_BY_QM)
+    elif name == "NRE":
+        assert tnum.NRE == jnum.NRE == tnum.N_SC_PER_PRB
+    else:
+        assert tequ.INFINITY.dtype == torch.float32
+        assert jequ.INFINITY.dtype == jnp.float32
+        assert float(tequ.INFINITY) == float(jequ.INFINITY) == float("inf")

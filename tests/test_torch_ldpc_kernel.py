@@ -521,13 +521,13 @@ def test_group_exit_kernel_on_waterfall_input(cuda_device):
     seg, x = _waterfall_input(GROUPS)
     xc = x.to(cuda_device)
     for group in (None, 2):
-        before = cuda_build.LAUNCHES[decoder_cuda.KERNEL_GROUP_EXIT]
+        before = cuda_build.LAUNCHES[decoder_cuda.KERNEL_RESUME]
         decoder_cuda.reset_executed_sweeps()
         got = decoder_cuda.decode_layered(xc, seg.bg, seg.zc, 8, wire=False,
                                           early_stop=True, strict=False,
                                           exit_group=group)
         torch.cuda.synchronize()
-        assert cuda_build.LAUNCHES[decoder_cuda.KERNEL_GROUP_EXIT] == before + 8
+        assert cuda_build.LAUNCHES[decoder_cuda.KERNEL_RESUME] == before + 8
         assert decoder_cuda.executed_sweeps(cuda_device) == int(got[2].sum())
         want = decoder_cuda.decode_layered_plain(x, seg.bg, seg.zc, 8, wire=False,
                                                  early_stop=True, strict=False,
