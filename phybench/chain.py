@@ -1,0 +1,132 @@
+"""The cell's inputs drawn from the seed, and the chained full-slot step
+that the window drives.
+
+The inputs are made once at set-up on the run's device: the DL payloads
+of the normal and the SSB slots, the DCIs, the MIBs, the UL payloads, the
+ACK and CSI bits, from one ``torch.Generator`` seeded with ``--seed``; the
+UE side's UL samples from the reference's own UE transmitter (through the
+configuration's static LxL channel at more than one layer); and the AWGN
+from the same generator.  The same tensors go to the measured package and
+to the reference.
+
+The step chains the measured package's public full-slot entry points as
+its bench chains them: the DL payload XORed with ``eps``, the AWGN sign
+flipped every step, the int8 HARQ carry fed back with ``new_data`` = 1,
+and the DL power reduced into the next ``eps`` (always 0), so every step
+depends on the one before.  The step also adds its TBs that fail CRC or
+carry another payload than the one sent into a device counter, read once
+after the window.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.profiler import record_function
+
+
+def full_cell_config(cls, config: dict):
+    """A ``FullCellConfig`` (of the measured package or of the reference)
+    from a configuration file's fields."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in config.items() if k in names})
+
+
+def channel_matrix(config: dict, dev: torch.device) -> torch.Tensor | None:
+    """The configuration's static LxL channel (``channel``: rows of [re, im]
+    pairs), or None for one layer."""
+    rows = config.get("channel")
+    if not rows:
+        return None
+    re = torch.tensor([[c[0] for c in r] for r in rows], dtype=torch.float32)
+    im = torch.tensor([[c[1] for c in r] for r in rows], dtype=torch.float32)
+    return torch.complex(re, im).to(dev)
+
+
+def draw_inputs(config: dict, s: int, snr_db: float, seed: int,
+                dev: torch.device) -> dict:
+    """Every input of the cell at ``s`` slots per step, from ``seed``."""
+    from .reference.parallel import full_cell as rfc
+
+    fc = full_cell_config(rfc.FullCellConfig, config)
+    mimo, u = fc.n_layers > 1, fc.nof_ue
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+
+    def bits(*shape):
+        return torch.randint(0, 2, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    cell_n, cell_s = ((fc.dl_cell_mimo(), fc.dl_cell_ssb_mimo()) if mimo
+                      else (fc.dl_cell(), fc.dl_cell_ssb()))
+    n_ssb, n_csi = len(fc.ssb_slots(s)), len(fc.csi_slots(s))
+    x = dict(pay_n=bits(len(fc.norm_slots(s)), u, cell_n.derived_tbs()),
+             pay_s=bits(n_ssb, u, cell_s.derived_tbs()),
+             dci=bits(s, 2 * u, fc.dci_bits),
+             pbch=bits(n_ssb, 24),
+             pay_u=bits(s, u, fc.ul_cell().derived_tbs()),
+             ack=bits(s, u, 2),
+             csi=bits(n_csi, u, fc.csi_bits))
+    if mimo:
+        ue = rfc.ue_ul_slot_batch_mimo(x["pay_u"], x["ack"], x["csi"], fc, s,
+                                       device=dev)
+        ul = torch.einsum("pl,slt->spt", channel_matrix(config, dev), ue)
+    else:
+        ul = rfc.ue_ul_slot_batch(x["pay_u"], x["ack"], x["csi"], fc, s, device=dev)
+    sig_pow = (ul.real * ul.real + ul.imag * ul.imag).mean()
+    sigma = torch.sqrt(sig_pow * 10.0 ** (-snr_db / 10.0) / 2.0)
+    n = torch.randn(tuple(ul.shape) + (2,), generator=gen, device=dev) * sigma
+    x.update(ul=ul, noise=torch.complex(n[..., 0], n[..., 1]),
+             ones=torch.ones((s, u), device=dev))
+    return x
+
+
+class Chain:
+    """The full-slot step of the measured package, chained; ``res`` and
+    ``td`` are the last step's results and ``flip`` the noise sign that the
+    next step takes (the last step took ``-flip``)."""
+
+    def __init__(self, fcm, config: dict, x: dict, s: int, dev: torch.device):
+        self.fc = full_cell_config(fcm.FullCellConfig, config)
+        self.x, self.s, self.dev = x, s, dev
+        mimo = self.fc.n_layers > 1
+        self.gnb_dl = fcm.gnb_dl_slot_batch_mimo if mimo else fcm.gnb_dl_slot_batch
+        self.gnb_ul = fcm.gnb_ul_slot_batch_mimo if mimo else fcm.gnb_ul_slot_batch
+        self.eps = torch.zeros((), dtype=torch.int8, device=dev)
+        self.flip = torch.ones((), device=dev)
+        self.soft = None        # the first step has no carry yet
+        self.res, self.td = None, None
+        self.bad = torch.zeros((), dtype=torch.int64, device=dev)
+        self.steps = 0
+
+    def __call__(self) -> dict:
+        x, fc, s, dev = self.x, self.fc, self.s, self.dev
+        with record_function("step"):
+            with record_function("gnb_dl"):
+                td = self.gnb_dl(x["pay_n"] ^ self.eps, x["pay_s"], x["dci"],
+                                 x["pbch"], fc, s, device=dev)
+            dl_pow = (td.real ** 2 + td.imag ** 2).mean()
+            rx = x["ul"] + x["noise"] * self.flip
+            with record_function("gnb_ul"):
+                res = self.gnb_ul(rx, fc, s, soft_in=self.soft,
+                                  new_data=x["ones"], soft_flat=True, device=dev)
+            self.eps = (res["payload"][0, 0, 0] & 0) | (dl_pow > 1e30).to(torch.int8)
+            self.bad += (~res["tb_ok"] | (res["payload"] != x["pay_u"]).any(-1)).sum()
+        self.flip = -self.flip
+        self.soft, self.res, self.td = res["soft"], res, td
+        self.steps += 1
+        return res
+
+    def reset_counts(self) -> None:
+        """Start the window's counts: no steps, no failed TBs."""
+        self.bad = torch.zeros((), dtype=torch.int64, device=self.dev)
+        self.steps = 0
+
+    def last_flip(self) -> float:
+        """The noise sign of the last step (host read: after the window)."""
+        return float(-self.flip)
+
+    @property
+    def tbs_per_step(self) -> int:
+        return self.s * self.fc.nof_ue

@@ -1,0 +1,21 @@
+"""The plain reference of the full gNB slot, for the benchmark's check of
+what the timed path produced.
+
+A frozen copy of the plain PyTorch code of the measured package's full
+slot (``parallel/full_cell.py``, ``parallel/slot_pipeline.py`` and the ops
+and models they call), with the imports made relative to this folder, the
+scale-out arguments taken out (it runs on one device) and the LDPC decode
+left as the plain layered min-sum (no CUDA kernel).
+It imports torch and numpy only, reads its spec tables from its own
+``data/``, and never imports the measured package: a later change to that
+package cannot move the yardstick.  ``lower_precision`` (``control.py``)
+runs it with its signal stages rounded to bfloat16, the check's control.
+"""
+
+import torch
+
+# The GF(2) products (CRC, Gold sequences, LDPC encoding) are float32
+# matmuls of 0/1 values whose integer sums must stay exact, and the
+# reference is plain float32: TF32 is off for both matmul and cuDNN.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,1 @@
+"""Copied ops of the reference."""
