@@ -8,7 +8,8 @@ the flags, so an edited source is rebuilt.
 
 ``LAUNCHES`` counts kernel launches by kernel name: each wrapper adds one
 where it launches its kernel, and nowhere else, so a run can show that the
-main path went through the kernels.
+main path went through the kernels.  A build that runs nvcc adds its
+seconds to ``utils.tracing.builds`` as ``nvcc.<name>``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+
+from .utils.tracing import builds
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -69,7 +72,8 @@ def build(name: str) -> pathlib.Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with builds.timed(f"nvcc.{name}"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     BUILD_LOGS[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc={proc.returncode}):\n"

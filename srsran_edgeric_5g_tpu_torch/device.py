@@ -3,10 +3,10 @@ kept on the device."""
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
+
+from .utils.tracing import cached_build
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -31,7 +31,7 @@ def host_constant(values, device: torch.device) -> torch.Tensor:
                           torch.device(device))
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _host_constant(dtype: str, shape: tuple, data: bytes,
                    device: torch.device) -> torch.Tensor:
     arr = np.frombuffer(data, dtype=dtype).reshape(shape)

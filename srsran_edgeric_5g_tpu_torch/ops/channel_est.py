@@ -17,16 +17,16 @@ with a delay spread, a windowed-sinc frequency smoother over the pilots.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
 import torch
 
 from ..device import host_constant
+from ..utils.tracing import cached_build
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _interp_weights(pilot_pos: tuple, nsubc: int) -> tuple[np.ndarray, np.ndarray]:
     """Static linear interp: target k -> (left pilot index, frac)."""
     pos = np.asarray(pilot_pos, dtype=np.float64)
@@ -37,7 +37,7 @@ def _interp_weights(pilot_pos: tuple, nsubc: int) -> tuple[np.ndarray, np.ndarra
     return left.astype(np.int64), frac.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _interp_on(pilot_pos: tuple, nsubc: int, device: torch.device):
     left, frac = _interp_weights(pilot_pos, nsubc)
     return (torch.as_tensor(left, device=device),
@@ -126,7 +126,7 @@ def estimate_port(rx_pilots: torch.Tensor, ref_pilots: torch.Tensor,
     return _interpolate(h_p, pilot_subcarriers, nsubc), noise_var, cfo
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _smooth_matrix(npil: int, delay_spread_s: float, pilot_scs: float,
                    half_len: int = 24) -> np.ndarray:
     """(npil, npil + 2*half_len) valid-convolution smoothing operator: a
@@ -145,7 +145,7 @@ def _smooth_matrix(npil: int, delay_spread_s: float, pilot_scs: float,
     return s.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _smooth_matrix_t(npil: int, delay_spread_s: float, pilot_scs: float,
                      half_len: int, device: torch.device) -> torch.Tensor:
     """The smoothing operator's transpose on ``device``."""

@@ -8,12 +8,11 @@ a GF(2) linear map, so per (polynomial, N) the N x L remainder table
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from ..utils.bits import parity_dot
+from ..utils.tracing import cached_build
 
 # Generator polynomials, TS 38.212 §5.1 (low L bits below x^L; x^L implicit).
 CRC24A = ("crc24a", 24, 0x864CFB)
@@ -26,7 +25,7 @@ CRC6 = ("crc6", 6, 0x21)
 BY_NAME = {p[0]: p for p in (CRC24A, CRC24B, CRC24C, CRC16, CRC11, CRC6)}
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def remainder_table(name: str, msg_len: int) -> np.ndarray:
     """(msg_len, L) uint8 table; row i = x^(msg_len-1-i+L) mod g as bits (MSB first)."""
     _, n_crc, poly = BY_NAME[name]
@@ -45,7 +44,7 @@ def remainder_table(name: str, msg_len: int) -> np.ndarray:
     return table
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _table_on(name: str, msg_len: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(remainder_table(name, msg_len), dtype=torch.float32,
                            device=device)

@@ -9,12 +9,12 @@ DM-RS without time OCC, ports 0-3 with frequency OCC.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
 from .sequences import gold_sequence
+from ..utils.tracing import cached_build
 
 SQRT1_2 = float(np.float32(1.0 / np.sqrt(2.0)))
 
@@ -37,7 +37,7 @@ class DmrsPattern:
     wf: np.ndarray            # (npilots,) frequency OCC for the port
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def dmrs_pattern(config_type: int, nof_prb: int, port: int = 0) -> DmrsPattern:
     """Pilot subcarrier positions and frequency OCC for one antenna port.
 

@@ -22,13 +22,13 @@ LLR convention: positive <=> bit 0.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
 from ..modulation import LLR_MAX, RANGE_LIMIT
 from .graph import get_graph
+from ...utils.tracing import cached_build
 
 DEFAULT_SCALING = 0.8
 DEFAULT_ITERS = 6  # reference default (ldpc_decoder_impl.h:216)
@@ -65,7 +65,7 @@ class DecodePlan:
     mask: np.ndarray         # (rows, max_deg) bool
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def get_decode_plan(bg: int, zc: int) -> DecodePlan:
     g = get_graph(bg, zc)
     max_deg = g.max_row_degree()
@@ -92,7 +92,7 @@ class _PlanTensors:
     mask: torch.Tensor                 # (rows, max_deg, 1) bool
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _plan_tensors(bg: int, zc: int, device: torch.device) -> _PlanTensors:
     plan = get_decode_plan(bg, zc)
     deg = plan.mask.sum(axis=1)

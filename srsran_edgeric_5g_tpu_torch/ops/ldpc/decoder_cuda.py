@@ -41,7 +41,6 @@ sweeps it ran are counted on the card (``executed_sweeps``).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -51,6 +50,7 @@ from .decoder import (DEFAULT_ITERS, DEFAULT_SCALING, _plan_tensors,
                       batch_met, check_parity, exit_ranks, get_decode_plan,
                       hard_decision, init_state, reduce_over, sweep)
 from .graph import get_graph
+from ...utils.tracing import cached_build
 
 KERNEL = "ldpc_layered"         # K1's launch counter (and the library)
 KERNEL_INT8 = "ldpc_int8"       # K2's launch counter
@@ -316,7 +316,7 @@ def executed_sweeps(dev: torch.device | str = "cuda") -> int:
     return int(_executed(dev).item())
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load(KERNEL)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -346,7 +346,7 @@ def blocks_per_sm(mode: int, bg: int, zc: int) -> int:
                                                  g.num_edges, _n_big(bg, zc), zc)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _edge_tables(bg: int, zc: int, device: torch.device):
     """(row_start (rows+1,), row_sync (rows,), edge_col (E,), edge_shift
     (E,)) int32 on device; edges row-major, columns ascending within a row.

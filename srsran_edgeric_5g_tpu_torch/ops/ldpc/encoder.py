@@ -16,13 +16,13 @@ Batched over codeblocks; the encoder emits the full cols*Zc codeword
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
 from ...utils.bits import parity_dot
 from .graph import get_graph, gf2_inv
+from ...utils.tracing import cached_build
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -36,7 +36,7 @@ class EncodePlan:
     sel_core_ext: torch.Tensor  # (rows-4, E_ce) float32
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def get_encode_plan(bg: int, zc: int, device: torch.device) -> EncodePlan:
     g = get_graph(bg, zc)
     z = np.arange(zc)

@@ -9,10 +9,11 @@ downstream op and the CUDA decoder consume.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import pathlib
 
 import numpy as np
+
+from ...utils.tracing import cached_build
 
 _DATA = pathlib.Path(__file__).resolve().parents[2] / "data" / "ldpc_graphs.npz"
 
@@ -24,7 +25,7 @@ NUM_ROWS = {BG1: 46, BG2: 42}
 NUM_COLS = {BG1: 68, BG2: 52}
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _tables():
     d = np.load(_DATA)
     return ({BG1: d["bg1_shifts"], BG2: d["bg2_shifts"]},
@@ -87,7 +88,7 @@ class LdpcGraph:
         return int(np.bincount(self.edge_row, minlength=self.rows).max())
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def get_graph(bg: int, zc: int) -> LdpcGraph:
     v = _tables()[0][bg][lifting_index(zc)].astype(np.int32)  # -1 = no edge
     shifts = np.where(v >= 0, v % zc, -1).astype(np.int32)

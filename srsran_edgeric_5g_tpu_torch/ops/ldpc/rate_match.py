@@ -10,12 +10,12 @@ into the circular buffer — HARQ soft combining comes free from the add.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
 from .graph import get_graph
+from ...utils.tracing import cached_build
 
 # k0 numerators per TS 38.212 Table 5.4.2.1-2 (k0 = Zc*floor(num*Ncb/(den*Zc))).
 _K0_FRAC = {1: {0: 0, 1: 17, 2: 33, 3: 56}, 2: {0: 0, 1: 13, 2: 25, 3: 43}}
@@ -49,7 +49,7 @@ class RateMatchPlan:
     injective: bool          # no buffer position is selected twice (E <= N_cb)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def get_rate_match_plan(bg: int, zc: int, e: int, rv: int, qm: int,
                         k_prime: int, n_cb: int | None = None) -> RateMatchPlan:
     """Build the fused selection + interleave index vector.
@@ -85,7 +85,7 @@ def get_rate_match_plan(bg: int, zc: int, e: int, rv: int, qm: int,
                          n_cb=n_cb, select_idx=fused, injective=bool(injective))
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _plan_tensors(plan: RateMatchPlan, device: torch.device):
     g = get_graph(plan.bg, plan.zc)
     pos = np.arange(plan.n_cb)

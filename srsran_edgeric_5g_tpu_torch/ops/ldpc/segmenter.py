@@ -9,12 +9,12 @@ into a (B_tb * C, K) codeblock batch: a reshape, a CRC matmul and padding.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
 from ..crc import crc_attach, crc_check
 from .graph import BG1, BG2, KB_MAX, min_lifting_size
+from ...utils.tracing import cached_build
 
 MAX_K_CB = {BG1: 8448, BG2: 3840}
 
@@ -39,7 +39,7 @@ class SegmentPlan:
     e: tuple[int, ...]  # per-codeblock rate-matched lengths
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def get_segment_plan(a: int, bg: int, g_total: int, qm: int,
                      nof_layers: int = 1) -> SegmentPlan:
     """Parameters for payload size ``a`` and total rate-matched bits

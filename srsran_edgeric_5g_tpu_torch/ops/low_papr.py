@@ -10,25 +10,25 @@ tables apply (this package's ``data/ldpc_graphs.npz``).
 
 from __future__ import annotations
 
-import functools
 import pathlib
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.tracing import cached_build
 
 _DATA = pathlib.Path(__file__).resolve().parents[1] / "data" / "ldpc_graphs.npz"
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _phi_tables() -> dict[int, np.ndarray]:
     d = np.load(_DATA)
     return {6: d["phi_m6"], 12: d["phi_m12"],
             18: d["phi_m18"], 24: d["phi_m24"]}
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def largest_prime_below(n: int) -> int:
     for c in range(n - 1, 1, -1):
         if all(c % d for d in range(2, int(c ** 0.5) + 1)):
@@ -36,7 +36,7 @@ def largest_prime_below(n: int) -> int:
     raise ValueError(n)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def base_sequence(u: int, v: int, m_zc: int) -> np.ndarray:
     """r_{u,v}(n), n = 0..M_zc-1, complex64."""
     if m_zc in (6, 12, 18, 24):

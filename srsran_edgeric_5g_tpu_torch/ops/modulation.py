@@ -13,11 +13,12 @@ recursion, reproducing the reference's piecewise-linear interval functions:
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
 import torch
+
+from ..utils.tracing import cached_build
 
 RANGE_LIMIT = 20.0       # QAM16/64/256
 RANGE_LIMIT_PSK = 24.0   # BPSK/QPSK
@@ -27,7 +28,7 @@ QM = {"bpsk": 1, "qpsk": 2, "qam16": 4, "qam64": 6, "qam256": 8}
 NAME_BY_QM = {v: k for k, v in QM.items()}
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def pam_levels(m: int) -> np.ndarray:
     """Amplitudes of the 2**m-level NR Gray PAM indexed by bit pattern (bits
     b0 ... b_{m-1} MSB first), by the TS 38.211 §5.1.3-5.1.6 nesting

@@ -17,23 +17,22 @@ Conventions (matching the reference):
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from ..device import host_constant
 from ..ran.numerology import SlotTiming
+from ..utils.tracing import cached_build
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _subcarrier_bins(nsubc: int, nfft: int, device: torch.device) -> torch.Tensor:
     """FFT bin index per subcarrier (negative half at the top)."""
     k = np.arange(nsubc)
     return torch.as_tensor((k - nsubc // 2) % nfft, device=device)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _cp_gather_index(nfft: int, cps: tuple, device: torch.device) -> torch.Tensor:
     """(total,) gather index into the flat (nsymb*nfft,) symbol buffer that
     produces the CP-inserted time-domain slot."""
@@ -45,7 +44,7 @@ def _cp_gather_index(nfft: int, cps: tuple, device: torch.device) -> torch.Tenso
     return torch.as_tensor(np.concatenate(out), device=device)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _data_gather_index(nfft: int, cps: tuple, window_offset: int,
                        device: torch.device) -> torch.Tensor:
     """(nsymb, nfft) gather index into the (total,) slot samples selecting the

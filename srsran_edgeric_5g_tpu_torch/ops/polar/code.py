@@ -11,11 +11,12 @@ sub-block interleaver and the DCI input interleaver.  The spec constants
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 import pathlib
 
 import numpy as np
+
+from ...utils.tracing import cached_build
 
 _DATA = pathlib.Path(__file__).resolve().parents[2] / "data" / "ldpc_graphs.npz"
 
@@ -28,7 +29,7 @@ NMAX_DL = 9   # PDCCH/PBCH
 NMAX_UL = 10  # UCI
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _tables():
     d = np.load(_DATA)
     return (d["polar_sequence_1024"].astype(np.int64),
@@ -77,7 +78,7 @@ def dci_interleaver(k: int) -> np.ndarray:
     return pi
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def construct(k: int, e: int, nmax: int = NMAX_DL,
               i_il: bool = True, n_pc: int = 0,
               i_bil: bool = False) -> PolarCode:

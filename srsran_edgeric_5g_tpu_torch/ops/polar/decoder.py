@@ -14,13 +14,12 @@ the DCI input interleaver is undone on the way out.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from .code import PolarCode
 from .encoder import transform
+from ...utils.tracing import cached_build
 
 
 def _f(a1: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
@@ -30,7 +29,7 @@ def _f(a1: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
     return s * torch.minimum(a1.abs(), a2.abs())
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _phase_mask(size: int) -> np.ndarray:
     """(size, 5) map of a decoded block onto the register: u_j ends up at
     phase (size-1-j) mod 5 after the remaining rotations."""

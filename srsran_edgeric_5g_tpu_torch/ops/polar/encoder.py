@@ -11,16 +11,15 @@ per batch through ``utils.bits.parity_dot`` (column sums stay far below
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from ...utils.bits import parity_dot
 from .code import PolarCode
+from ...utils.tracing import cached_build
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _pc_matrix(code: PolarCode) -> np.ndarray:
     """(K, n_pc) GF(2) map from (interleaved) info bits to PC-bit values.
 
@@ -43,7 +42,7 @@ def _pc_matrix(code: PolarCode) -> np.ndarray:
             else np.zeros((code.k, 0), np.uint8))
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def generator(n_bits: int) -> np.ndarray:
     """(N, N) uint8 G_N = F^{(x)n}, F = [[1, 0], [1, 1]]."""
     g = np.ones((1, 1), dtype=np.uint8)
@@ -52,7 +51,7 @@ def generator(n_bits: int) -> np.ndarray:
     return g
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _allocation(code: PolarCode) -> np.ndarray:
     """(K, N) GF(2) map from message bits to the u-domain vector."""
     perm = (code.dci_interleave if code.dci_interleave is not None
@@ -64,7 +63,7 @@ def _allocation(code: PolarCode) -> np.ndarray:
     return a
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _tensors(code: PolarCode, device: torch.device):
     alloc = _allocation(code)
     enc = (alloc @ generator(code.nof_bits).astype(np.int64)) % 2

@@ -9,17 +9,16 @@ shortened (large positive LLR, known zero) positions.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from .code import PolarCode
+from ...utils.tracing import cached_build
 
 SHORT_LLR = 1e9  # effectively-infinite positive LLR for shortened bits
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def triangular_interleave(e: int) -> np.ndarray:
     """TS 38.212 §5.4.1.3 coded-bit interleaver (i_BIL = 1): perm with
     f[i] = e[perm[i]] — write row-wise into a triangle of T rows, read
@@ -40,7 +39,7 @@ def triangular_interleave(e: int) -> np.ndarray:
     return perm
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def select_index(code: PolarCode) -> np.ndarray:
     """Output position -> mother-codeword index."""
     jn = code.subblock_perm
@@ -56,7 +55,7 @@ def select_index(code: PolarCode) -> np.ndarray:
     return sel
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _index_on(code: PolarCode, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(select_index(code), device=device)
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.tracing import cached_build
 
 _DATA = pathlib.Path(__file__).resolve().parents[1] / "data" / "ldpc_graphs.npz"
 
@@ -33,7 +34,7 @@ L_LONG = 839
 L_SHORT = 139
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _root_tables():
     d = np.load(_DATA)
     return {L_LONG: d["prach_root_long"], L_SHORT: d["prach_root_short"]}
@@ -44,7 +45,7 @@ def sequence_number(logical_index: int, l_ra: int = L_LONG) -> int:
     return int(_root_tables()[l_ra][logical_index % (l_ra - 1)])
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def root_sequence(u: int, l_ra: int = L_LONG) -> np.ndarray:
     """x_u(n) = exp(-j pi u n (n+1) / L), complex64."""
     n = np.arange(l_ra, dtype=np.float64)
@@ -231,7 +232,7 @@ def prach_ofdm_info(srate: int, l_ra: int = L_LONG, cp_us: float = 103.0,
                          freq_offset_bins=int(round(freq_offset_hz / scs)))
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _bins(info: PrachOfdmInfo, device: torch.device) -> torch.Tensor:
     k = (info.freq_offset_bins + np.arange(info.l_ra)) % info.dft_size
     return torch.as_tensor(k, device=device)
@@ -282,7 +283,7 @@ class PrachDetection:
     detected: torch.Tensor     # (64,) bool, metric above threshold
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _detect_tables(cfg: PrachConfig, device: torch.device):
     """conj(DFT) of the cell's roots (R, L), each preamble's root row (64, 1)
     and its N_cs zone (64, win) into the doubled delay axis."""

@@ -20,7 +20,6 @@ the full cell builds its batched F1 / F2 rows from the same tables.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -31,6 +30,7 @@ from .equalizer import equalize_mmse_1xn
 from .low_papr import base_sequence
 from .modulation import demodulate_soft, modulate
 from .sequences import np_gold_sequence, scramble_bits, scramble_llrs
+from ..utils.tracing import cached_build
 
 NSC = 12
 
@@ -49,7 +49,7 @@ class Pucch01Config:
         return self.n_id % 30
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _ncs_table(n_id: int, slot: int) -> np.ndarray:
     """n_cs(ns, l) for all 14 symbols (TS 38.211 §6.3.2.2.2)."""
     c = np_gold_sequence(n_id, 8 * 14 * (slot + 1))

@@ -13,12 +13,11 @@ one (B, 31) x (31, N) matmul, no sequential LFSR state.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from ..utils.bits import parity_dot
+from ..utils.tracing import cached_build
 
 NC = 1600
 
@@ -50,7 +49,7 @@ def _run_blocks(start_block: np.ndarray, taps: tuple[int, ...], total: int) -> n
     return out[:, :total].astype(np.uint8)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def gold_tables(length: int) -> tuple[np.ndarray, np.ndarray]:
     """Return (x1_part (length,), basis (31, length)) for sequence length N."""
     # x1: x1(n+31) = x1(n+3) ^ x1(n); init x1(0)=1, rest 0.
@@ -62,7 +61,7 @@ def gold_tables(length: int) -> tuple[np.ndarray, np.ndarray]:
     return x1, basis
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _tables_on(length: int, device: torch.device):
     x1, basis = gold_tables(length)
     return (torch.as_tensor(x1, dtype=torch.int8, device=device),

@@ -9,24 +9,24 @@ against the whole codebook.
 
 from __future__ import annotations
 
-import functools
 import pathlib
 
 import numpy as np
 import torch
 
 from ..utils.bits import parity_dot
+from ..utils.tracing import cached_build
 
 _DATA = pathlib.Path(__file__).resolve().parents[1] / "data" / "ldpc_graphs.npz"
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def rm_basis() -> np.ndarray:
     """(11, 32) int8 basis sequences M_i(n) (Table 5.3.3.3-1)."""
     return np.load(_DATA)["rm_basis_sequences"]
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _codebook(k: int, e: int) -> np.ndarray:
     """(2^K, E) every codeword as ±1 float32 (bit 0 -> +1); message m has
     bit i = (m >> i) & 1."""
@@ -42,7 +42,7 @@ def _codebook(k: int, e: int) -> np.ndarray:
     return (1.0 - 2.0 * cw).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _tensors(k: int, e: int, device: torch.device):
     return (torch.as_tensor(rm_basis()[:k].astype(np.float32), device=device),
             torch.as_tensor(_codebook(k, e).T.copy(), device=device))

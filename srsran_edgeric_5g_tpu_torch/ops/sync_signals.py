@@ -7,10 +7,10 @@ cell-search PSS correlation.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
+
+from ..utils.tracing import cached_build
 
 SSB_NSYMB = 4
 SSB_NSUBC = 240
@@ -25,13 +25,13 @@ def _lfsr127(taps: tuple[int, ...], init: tuple[int, ...]) -> np.ndarray:
     return x[:127]
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _pss_base() -> np.ndarray:
     # x(i+7) = x(i+4) + x(i); [x(6)..x(0)] = 1110110 (§7.4.2.2.1).
     return _lfsr127((0, 4), (0, 1, 1, 0, 1, 1, 1))
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _sss_bases() -> tuple[np.ndarray, np.ndarray]:
     # x0(i+7) = x0(i+4) + x0(i); x1(i+7) = x1(i+1) + x1(i); both initialised
     # [x(6)..x(0)] = 0000001 (§7.4.2.3.1).

@@ -29,10 +29,11 @@ once per device.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
+
+from ..utils.tracing import cached_build
 
 
 # eq=False: plans are cached per key, so identity is equality (the index
@@ -74,7 +75,7 @@ def _place_res(data_symbols: tuple[int, ...], m: int, first_symbol: int,
     return out
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def get_demux_plan(g_total: int, qm: int, re_per_symbol: int,
                    data_symbols: tuple[int, ...],
                    first_dmrs_symbol: int,
@@ -169,7 +170,7 @@ class _PlanTensors:
     sch_erased: torch.Tensor | None
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _tensors(plan: UlschDemuxPlan, device: torch.device) -> _PlanTensors:
     def on(a):
         return torch.as_tensor(a, device=device)

@@ -33,12 +33,20 @@ The MIMO variants (``gnb_dl_slot_batch_mimo``, ``ue_ul_slot_batch_mimo``,
 the slot pipeline's ``*_mimo`` programs; the control channels (PDCCH, SSB
 and CSI-RS down, PUCCH, SRS and PRACH up) stay single-port on port /
 antenna 0.
+
+The gNB entry points open ``utils.tracing.l1_tracer`` spans at their stage
+boundaries, the same in the SISO and the MIMO pair: ``phy.dl`` around the
+DL call with ``phy.dl.code``, ``.control``, ``.grid`` and ``.ofdm``
+inside; ``phy.ul`` around the UL call with ``phy.ul.ofdm``, ``.front``,
+``.dematch`` and ``.decode`` (the last two in ``slot_pipeline._ul_back``)
+and ``.control`` (``.pucch_f1``, ``.pucch_f2``, ``.srs``, ``.prach``).
+Under a torch profiler they are its ranges; with neither the profiler nor
+the tracer on they cost a flag check.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -52,6 +60,7 @@ from ..ops.ldpc import decoder
 from ..ops.polar import encoder as penc, rate_match as prm
 from ..ran.numerology import N_SC_PER_PRB
 from . import slot_pipeline as sp
+from ..utils.tracing import cached_build, l1_tracer
 
 SQRT2 = float(np.sqrt(2.0))
 
@@ -267,7 +276,7 @@ def _dev(*arrays, device):
 
 # ============================================================ DL control
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _pdcch_static(fc: FullCellConfig, s_total: int):
     """Static PDCCH mapping: (cfgs, data_sc, dmrs_sc, per-slot DM-RS values,
     per-DCI scrambling inits, per-DCI RNTI CRC masks)."""
@@ -286,7 +295,7 @@ def _pdcch_static(fc: FullCellConfig, s_total: int):
     return cfgs, data_sc, dmrs_sc, dmrs_vals, ci, rnti_mask
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _pdcch_tensors(fc: FullCellConfig, s_total: int, device: torch.device):
     _, data_sc, dmrs_sc, dmrs_vals, ci, rnti_mask = _pdcch_static(fc, s_total)
     return _dev(data_sc, dmrs_sc, dmrs_vals, np.tile(ci, s_total),
@@ -322,7 +331,7 @@ def pdcch_rows(dci: torch.Tensor, fc: FullCellConfig,
     return rows
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _ssb_static(fc: FullCellConfig, s_total: int):
     """Static SSB machinery for the batch's occasions (sfn0 = 0): payload
     positions, per-occasion timing bits and 1st scrambling, PBCH data
@@ -346,7 +355,7 @@ def _ssb_static(fc: FullCellConfig, s_total: int):
     return pos, epos, evals, seq1, data_pos, base, seq2
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _ssb_tensors(fc: FullCellConfig, s_total: int, device: torch.device):
     pos, epos, evals, seq1, data_pos, base, seq2 = _ssb_static(fc, s_total)
     return _dev(pos, epos, evals, seq1, data_pos[:, 0], data_pos[:, 1], base,
@@ -373,7 +382,7 @@ def ssb_blocks(pbch: torch.Tensor, fc: FullCellConfig,
     return blocks
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _csi_rs_rows_np(fc: FullCellConfig, s_total: int) -> np.ndarray:
     """(S, nsubc) NZP-CSI-RS contribution of each slot's csi_rs_symbol
     (zeros off-occasion)."""
@@ -384,12 +393,12 @@ def _csi_rs_rows_np(fc: FullCellConfig, s_total: int) -> np.ndarray:
     return rows
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _csi_rs_rows(fc: FullCellConfig, s_total: int, device: torch.device):
     return _dev(_csi_rs_rows_np(fc, s_total), device=device)[0]
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _rntis(fc: FullCellConfig, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(fc.rntis(), device=device)
 
@@ -405,41 +414,47 @@ def gnb_dl_slot_batch(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
     On a mesh the PDSCH coding runs sharded (``slot_pipeline._dl_code``);
     the control channels, grids and samples are replicated.
     """
-    dev = resolve_device(device)
-    pay_norm, pay_ssb = sp._on(pay_norm, dev), sp._on(pay_ssb, dev)
-    dci, pbch = (sp.unshard(sp._on(x, dev)) for x in (dci, pbch))
-    cell_n, cell_s = fc.dl_cell(), fc.dl_cell_ssb()
-    t = cell_n.timing
-    norm_idx, ssb_idx = fc.norm_slots(s_total), fc.ssb_slots(s_total)
-    if ssb_idx[0] != 0:
-        raise ValueError("the SSB occasions must start at slot 0")
-    rntis = _rntis(fc, dev)
-    u, k = fc.nof_ue, fc.ssb_period
+    with l1_tracer.span("phy.dl"):
+        dev = resolve_device(device)
+        pay_norm, pay_ssb = sp._on(pay_norm, dev), sp._on(pay_ssb, dev)
+        dci, pbch = (sp.unshard(sp._on(x, dev)) for x in (dci, pbch))
+        cell_n, cell_s = fc.dl_cell(), fc.dl_cell_ssb()
+        t = cell_n.timing
+        norm_idx, ssb_idx = fc.norm_slots(s_total), fc.ssb_slots(s_total)
+        if ssb_idx[0] != 0:
+            raise ValueError("the SSB occasions must start at slot 0")
+        rntis = _rntis(fc, dev)
+        u, k = fc.nof_ue, fc.ssb_period
 
-    syms_n = sp.unshard(sp._dl_code(pay_norm, rntis, cell_n, mesh=mesh)
-                        ).reshape(len(norm_idx), u, -1)
-    syms_s = sp.unshard(sp._dl_code(pay_ssb, rntis, cell_s, mesh=mesh)
-                        ).reshape(len(ssb_idx), u, -1)
-    prows = pdcch_rows(dci, fc, s_total)                    # (S, nsubc)
-    blocks = ssb_blocks(pbch, fc, s_total)                  # (S_ssb, 4, 240)
+        with l1_tracer.span("phy.dl.code"):
+            syms_n = sp.unshard(sp._dl_code(pay_norm, rntis, cell_n, mesh=mesh)
+                                ).reshape(len(norm_idx), u, -1)
+            syms_s = sp.unshard(sp._dl_code(pay_ssb, rntis, cell_s, mesh=mesh)
+                                ).reshape(len(ssb_idx), u, -1)
+        with l1_tracer.span("phy.dl.control"):
+            prows = pdcch_rows(dci, fc, s_total)                # (S, nsubc)
+            blocks = ssb_blocks(pbch, fc, s_total)              # (S_ssb, 4, 240)
+            crows = (_csi_rs_rows(fc, s_total, dev) if fc.csi_rs_period > 0
+                     else None)
 
-    rows_n = {0: _slot_drop_period(prows, k)}
-    rows_s = {0: prows[0::k]}
-    if fc.csi_rs_period > 0:
-        crows = _csi_rs_rows(fc, s_total, dev)
-        rows_n[fc.csi_rs_symbol] = _slot_drop_period(crows, k)
-        rows_s[fc.csi_rs_symbol] = crows[0::k]
-    sc0 = fc.ssb_first_subcarrier
-    for j in range(4):
-        row = torch.zeros((len(ssb_idx), t.nof_subc), dtype=torch.complex64,
-                          device=dev)
-        row[:, sc0:sc0 + 240] = blocks[:, j]
-        rows_s[2 + j] = rows_s[2 + j] + row if 2 + j in rows_s else row
-    g_n = sp._dl_grid(syms_n, cell_n, dmrs_scale=1.0, add_rows=rows_n)
-    g_s = sp._dl_grid(syms_s, cell_s, dmrs_scale=1.0, add_rows=rows_s)
-    grid = _slot_merge_period(g_s, g_n, k, s_total)
-    return sp.shard(_tx_amplitude(ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft),
-                                  fc), mesh, ())
+        with l1_tracer.span("phy.dl.grid"):
+            rows_n = {0: _slot_drop_period(prows, k)}
+            rows_s = {0: prows[0::k]}
+            if crows is not None:
+                rows_n[fc.csi_rs_symbol] = _slot_drop_period(crows, k)
+                rows_s[fc.csi_rs_symbol] = crows[0::k]
+            sc0 = fc.ssb_first_subcarrier
+            for j in range(4):
+                row = torch.zeros((len(ssb_idx), t.nof_subc),
+                                  dtype=torch.complex64, device=dev)
+                row[:, sc0:sc0 + 240] = blocks[:, j]
+                rows_s[2 + j] = rows_s[2 + j] + row if 2 + j in rows_s else row
+            g_n = sp._dl_grid(syms_n, cell_n, dmrs_scale=1.0, add_rows=rows_n)
+            g_s = sp._dl_grid(syms_s, cell_s, dmrs_scale=1.0, add_rows=rows_s)
+            grid = _slot_merge_period(g_s, g_n, k, s_total)
+        with l1_tracer.span("phy.dl.ofdm"):
+            td = _tx_amplitude(ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft), fc)
+        return sp.shard(td, mesh, ())
 
 
 def _tx_amplitude(td: torch.Tensor, fc: FullCellConfig) -> torch.Tensor:
@@ -451,7 +466,7 @@ def _tx_amplitude(td: torch.Tensor, fc: FullCellConfig) -> torch.Tensor:
 
 # ============================================================ PUCCH
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _f1_static(fc: FullCellConfig, s_total: int):
     """PUCCH F1 low-PAPR sequences per (slot, symbol) + OCC row: one UE per
     PRB with initial_cs 0 and occ 0, so the values are UE-independent."""
@@ -468,7 +483,7 @@ def _f1_static(fc: FullCellConfig, s_total: int):
     return data_seq, dmrs_seq, pucch_mod._occ(ndata, 0)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _f1_tensors(fc: FullCellConfig, s_total: int, device: torch.device):
     return _dev(*_f1_static(fc, s_total), device=device)
 
@@ -504,7 +519,7 @@ def _f1_detect(rx_grid: torch.Tensor, fc: FullCellConfig, s_total: int):
     return bits, z.abs()
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _f2_static(fc: FullCellConfig, s_total: int):
     """PUCCH F2 static mapping: absolute data / DM-RS subcarriers per UE,
     per-(occasion, UE, symbol) DM-RS values, per-UE scrambling inits."""
@@ -531,7 +546,7 @@ def _f2_static(fc: FullCellConfig, s_total: int):
     return slots, data_sc, dmrs_sc, pil, ci, nearest
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _f2_tensors(fc: FullCellConfig, s_total: int, device: torch.device):
     slots, data_sc, dmrs_sc, pil, ci, nearest = _f2_static(fc, s_total)
     return _dev(data_sc.reshape(-1), dmrs_sc.reshape(-1), pil,
@@ -581,7 +596,7 @@ def _f2_decode(rx_grid_csi: torch.Tensor, fc: FullCellConfig, s_total: int):
 
 # ================================================================= SRS
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _srs_static(fc: FullCellConfig):
     seqs = np.stack([csi_rs.srs_sequence(fc.srs_cfg(u))
                      for u in range(fc.nof_ue)])            # (U, m_sc)
@@ -592,7 +607,7 @@ def _srs_static(fc: FullCellConfig):
     return seqs, scs, row
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _srs_tensors(fc: FullCellConfig, device: torch.device):
     seqs, scs, row = _srs_static(fc)
     return _dev(seqs, scs.astype(np.int64), row, device=device)
@@ -724,16 +739,21 @@ def _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid0, rx0,
     replicated."""
     s, u = rx_grid0.shape[0], fc.nof_ue
     seg, rm = sp._plans(fc.ul_cell(), 0)
-    ack_bits, ack_metric = _f1_detect(rx_grid0, fc, s_total)
-    csi_bits, csi_ok = _f2_decode(_slot_take(rx_grid0, fc.csi_slots(s_total)),
-                                  fc, s_total)
-    srs_h, srs_snr = _srs_estimate(_slot_take(rx_grid0, fc.srs_slots(s_total)),
-                                   fc)
-    info = fc.prach_info()
-    win = _slot_take(rx0, fc.prach_slots(s_total))[
-        :, :info.cp_samples + info.dft_size]
-    rx_freq = prach_mod.ofdm_demodulate_prach(win, info)
-    pr_metric, pr_delay, pr_det = _prach_detect_batch(rx_freq, fc)
+    with l1_tracer.span("phy.ul.control"):
+        with l1_tracer.span("phy.ul.control.pucch_f1"):
+            ack_bits, ack_metric = _f1_detect(rx_grid0, fc, s_total)
+        with l1_tracer.span("phy.ul.control.pucch_f2"):
+            csi_bits, csi_ok = _f2_decode(
+                _slot_take(rx_grid0, fc.csi_slots(s_total)), fc, s_total)
+        with l1_tracer.span("phy.ul.control.srs"):
+            srs_h, srs_snr = _srs_estimate(
+                _slot_take(rx_grid0, fc.srs_slots(s_total)), fc)
+        with l1_tracer.span("phy.ul.control.prach"):
+            info = fc.prach_info()
+            win = _slot_take(rx0, fc.prach_slots(s_total))[
+                :, :info.cp_samples + info.dft_size]
+            rx_freq = prach_mod.ofdm_demodulate_prach(win, info)
+            pr_metric, pr_delay, pr_det = _prach_detect_batch(rx_freq, fc)
     rows = sp.ROWS
     control = {
         "ack_bits": ack_bits, "ack_metric": ack_metric,
@@ -774,19 +794,22 @@ def gnb_ul_slot_batch(rx, fc: FullCellConfig, s_total: int,
     rows and codeblocks.  ``soft_in`` may be the sharded carry of the
     previous call.
     """
-    cell = fc.ul_cell()
-    sp._check_siso(cell)
-    dev = resolve_device(device)
-    rx = sp.unshard(sp._on(rx, dev))
-    rx_grid = ofdm.demodulate_slot(rx, cell.timing, scale=1.0)  # (S, nsymb, nsubc)
-    llr, nv, cfo = sp._ul_front(None, _rntis(fc, dev), cell, rx_grid=rx_grid,
-                                mesh=mesh)
-    payload, tb_ok, soft = sp._ul_back(llr, cell, 0, num_iters,
-                                       sp._on(soft_in, dev),
-                                       sp._on(new_data, dev),
-                                       early_stop=early_stop, mesh=mesh)
-    return _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid, rx, fc, s_total,
-                       soft_flat, mesh)
+    with l1_tracer.span("phy.ul"):
+        cell = fc.ul_cell()
+        sp._check_siso(cell)
+        dev = resolve_device(device)
+        rx = sp.unshard(sp._on(rx, dev))
+        with l1_tracer.span("phy.ul.ofdm"):
+            rx_grid = ofdm.demodulate_slot(rx, cell.timing, scale=1.0)  # (S, nsymb, nsubc)
+        with l1_tracer.span("phy.ul.front"):
+            llr, nv, cfo = sp._ul_front(None, _rntis(fc, dev), cell,
+                                        rx_grid=rx_grid, mesh=mesh)
+        payload, tb_ok, soft = sp._ul_back(llr, cell, 0, num_iters,
+                                           sp._on(soft_in, dev),
+                                           sp._on(new_data, dev),
+                                           early_stop=early_stop, mesh=mesh)
+        return _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid, rx, fc,
+                           s_total, soft_flat, mesh)
 
 
 # ============================================================ MIMO variants
@@ -811,27 +834,35 @@ def gnb_dl_slot_batch_mimo(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
     at the L-layer TBS of ``dl_cell_mimo`` / ``dl_cell_ssb_mimo``.  The
     sub-batches' grids are merged and modulated once.  On a mesh as
     ``gnb_dl_slot_batch``."""
-    dev = resolve_device(device)
-    dci, pbch = (sp.unshard(sp._on(x, dev)) for x in (dci, pbch))
-    cell_n, cell_s = fc.dl_cell_mimo(), fc.dl_cell_ssb_mimo()
-    if fc.ssb_slots(s_total)[0] != 0:
-        raise ValueError("the SSB occasions must start at slot 0")
-    k = fc.ssb_period
-    rntis = _rntis(fc, dev)
-    extra = _dl_control_rows(dci, fc, s_total)
-    sc0 = fc.ssb_first_subcarrier
-    ex_s = extra[0::k].clone()
-    ex_s[:, 2:6, sc0:sc0 + 240] += ssb_blocks(pbch, fc, s_total)
-    g_n = sp.unshard(sp.dl_slot_batch_mimo(
-        pay_norm, rntis, cell_n, extra_rows=_slot_drop_period(extra, k),
-        return_grid=True, device=dev, mesh=mesh))
-    g_s = sp.unshard(sp.dl_slot_batch_mimo(
-        pay_ssb, rntis, cell_s, extra_rows=ex_s, return_grid=True, device=dev,
-        mesh=mesh))
-    grid = _slot_merge_period(g_s, g_n, k, s_total)
-    t = fc.timing
-    return sp.shard(_tx_amplitude(ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft),
-                                  fc), mesh, ())
+    with l1_tracer.span("phy.dl"):
+        dev = resolve_device(device)
+        dci, pbch = (sp.unshard(sp._on(x, dev)) for x in (dci, pbch))
+        cell_n, cell_s = fc.dl_cell_mimo(), fc.dl_cell_ssb_mimo()
+        if fc.ssb_slots(s_total)[0] != 0:
+            raise ValueError("the SSB occasions must start at slot 0")
+        k = fc.ssb_period
+        rntis = _rntis(fc, dev)
+        with l1_tracer.span("phy.dl.control"):
+            extra = _dl_control_rows(dci, fc, s_total)
+            blocks = ssb_blocks(pbch, fc, s_total)
+        with l1_tracer.span("phy.dl.grid"):
+            sc0 = fc.ssb_first_subcarrier
+            ex_s = extra[0::k].clone()
+            ex_s[:, 2:6, sc0:sc0 + 240] += blocks
+            ex_n = _slot_drop_period(extra, k)
+        # dl_slot_batch_mimo opens phy.dl.code and phy.dl.grid itself.
+        g_n = sp.unshard(sp.dl_slot_batch_mimo(
+            pay_norm, rntis, cell_n, extra_rows=ex_n, return_grid=True,
+            device=dev, mesh=mesh))
+        g_s = sp.unshard(sp.dl_slot_batch_mimo(
+            pay_ssb, rntis, cell_s, extra_rows=ex_s, return_grid=True,
+            device=dev, mesh=mesh))
+        with l1_tracer.span("phy.dl.grid"):
+            grid = _slot_merge_period(g_s, g_n, k, s_total)
+        t = fc.timing
+        with l1_tracer.span("phy.dl.ofdm"):
+            td = _tx_amplitude(ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft), fc)
+        return sp.shard(td, mesh, ())
 
 
 def gnb_ul_slot_batch_mimo(rx, fc: FullCellConfig, s_total: int,
@@ -844,18 +875,21 @@ def gnb_ul_slot_batch_mimo(rx, fc: FullCellConfig, s_total: int,
     dict of ``gnb_ul_slot_batch`` (payload at the L-layer TBS).  All
     antennas are demodulated once; PUSCH takes the LxP front, PUCCH F1/F2,
     SRS and PRACH antenna 0.  On a mesh as ``gnb_ul_slot_batch``."""
-    cell = fc.ul_cell()
-    dev = resolve_device(device)
-    rx = sp.unshard(sp._on(rx, dev))
-    t = cell.timing
-    s, p_rx = rx.shape[:2]
-    rx_grid = ofdm.demodulate_slot(rx.reshape(s * p_rx, -1), t, scale=1.0)
-    rx_grid = rx_grid.reshape(s, p_rx, t.nsymb, t.nof_subc)
-    llr, nv, cfo = sp._ul_front_mimo(None, _rntis(fc, dev), cell,
-                                     rx_grid=rx_grid, mesh=mesh)
-    payload, tb_ok, soft = sp._ul_back(llr, cell, 0, num_iters,
-                                       sp._on(soft_in, dev),
-                                       sp._on(new_data, dev),
-                                       early_stop=early_stop, mesh=mesh)
-    return _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid[:, 0], rx[:, 0],
-                       fc, s_total, soft_flat, mesh)
+    with l1_tracer.span("phy.ul"):
+        cell = fc.ul_cell()
+        dev = resolve_device(device)
+        rx = sp.unshard(sp._on(rx, dev))
+        t = cell.timing
+        s, p_rx = rx.shape[:2]
+        with l1_tracer.span("phy.ul.ofdm"):
+            rx_grid = ofdm.demodulate_slot(rx.reshape(s * p_rx, -1), t, scale=1.0)
+            rx_grid = rx_grid.reshape(s, p_rx, t.nsymb, t.nof_subc)
+        with l1_tracer.span("phy.ul.front"):
+            llr, nv, cfo = sp._ul_front_mimo(None, _rntis(fc, dev), cell,
+                                             rx_grid=rx_grid, mesh=mesh)
+        payload, tb_ok, soft = sp._ul_back(llr, cell, 0, num_iters,
+                                           sp._on(soft_in, dev),
+                                           sp._on(new_data, dev),
+                                           early_stop=early_stop, mesh=mesh)
+        return _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid[:, 0],
+                           rx[:, 0], fc, s_total, soft_flat, mesh)

@@ -49,7 +49,6 @@ inputs there; a CUDA request on a host without a CUDA device raises.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 
 import numpy as np
@@ -63,6 +62,8 @@ from ..ran.numerology import N_SC_PER_PRB, SlotTiming, slot_timing
 from ..ran.tbs import nof_re, tbs as tbs_calc
 from .mesh import (CB_AXIS, CELL_AXIS, HOST_AXIS, UE_AXIS, coordinate,
                    is_dtensor, row_block, spec_axes, take, wrap)
+
+from ..utils.tracing import cached_build, l1_tracer
 
 ROWS = (UE_AXIS,)                    # the reference's row_axes default
 CODEBLOCKS = ((UE_AXIS, CB_AXIS),)   # and cb_axes default
@@ -135,7 +136,7 @@ def _check_siso(cell: CellConfig) -> None:
                          "plane is dl_slot_batch_mimo / ul_slot_batch_mimo")
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _plans(cell: CellConfig, rv: int = 0):
     tbs = cell.derived_tbs()
     bg = segmenter.select_base_graph(tbs, cell.target_rate)
@@ -150,7 +151,7 @@ def _plans(cell: CellConfig, rv: int = 0):
     return seg, rm
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _dmrs_full_band(cell: CellConfig, device: torch.device) -> torch.Tensor:
     """(ndmrs, npilots_fullband) pilot sequences shared by all UEs."""
     rows = []
@@ -539,23 +540,27 @@ def _ul_back(llr, cell: CellConfig, rv: int = 0,
     rows, cbx = _axes(mesh, row_axes), _axes(mesh, cb_axes)
     cb_block = lambda crd: row_block(b_tb * c, mesh, cbx, crd)
     cb_tbs, _, own = _share(b_tb, c, mesh, cbx)
-    cb_llr = take(llr, mesh, cb_tbs, (b_tb, g), cbx).reshape(-1, rm.e)[own]
-    sb = (None if soft_buffer is None else
-          take(soft_buffer, mesh, cb_block, (b_tb * c, rm.n_cb), cbx))
-    keep = (None if new_data is None else
-            (1.0 - take(new_data, mesh, cb_tbs, (b_tb,), cbx)).repeat_interleave(c)[own])
-    full = _dematch(cb_llr, cell, rv, sb, keep)
-    new_soft = full[:, 2 * seg.zc:2 * seg.zc + rm.n_cb]
+    with l1_tracer.span("phy.ul.dematch"):
+        cb_llr = take(llr, mesh, cb_tbs, (b_tb, g), cbx).reshape(-1, rm.e)[own]
+        sb = (None if soft_buffer is None else
+              take(soft_buffer, mesh, cb_block, (b_tb * c, rm.n_cb), cbx))
+        keep = (None if new_data is None else
+                (1.0 - take(new_data, mesh, cb_tbs, (b_tb,), cbx)
+                 ).repeat_interleave(c)[own])
+        full = _dematch(cb_llr, cell, rv, sb, keep)
+        new_soft = full[:, 2 * seg.zc:2 * seg.zc + rm.n_cb]
     # The early stop's batch is the global one (the reference's while_loop
     # over the sharded batch): every rank sharing the codeblock axes.
     groups = None if mesh is None else [mesh.get_group(a) for a in cbx]
-    hard, _ = decoder.decode(full, seg.bg, seg.zc, num_iters=num_iters,
-                             early_stop=early_stop, schedule="wire_auto",
-                             process_groups=groups)
-    k = hard.shape[-1]
-    hard = take(wrap(hard, mesh, cbx, (b_tb * c, k)), mesh,
-                lambda crd: row_block(b_tb, mesh, rows, crd), (b_tb, c * k), rows)
-    payload, tb_ok = segmenter.desegment_tb(hard.reshape(-1, k), seg)
+    with l1_tracer.span("phy.ul.decode"):
+        hard, _ = decoder.decode(full, seg.bg, seg.zc, num_iters=num_iters,
+                                 early_stop=early_stop, schedule="wire_auto",
+                                 process_groups=groups)
+        k = hard.shape[-1]
+        hard = take(wrap(hard, mesh, cbx, (b_tb * c, k)), mesh,
+                    lambda crd: row_block(b_tb, mesh, rows, crd), (b_tb, c * k),
+                    rows)
+        payload, tb_ok = segmenter.desegment_tb(hard.reshape(-1, k), seg)
     return (wrap(payload, mesh, rows, (b_tb, payload.shape[-1])),
             wrap(tb_ok, mesh, rows, (b_tb,)),
             wrap(new_soft, mesh, cbx, (b_tb * c, rm.n_cb)))
@@ -630,7 +635,7 @@ def _span_dmrs(cell: CellConfig, port: int):
     return span_pat.subcarriers, np.asarray(span_pat.wf), centers
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _dmrs_rows_mimo(cell: CellConfig, device: torch.device) -> torch.Tensor:
     """(L, ndmrs, nsubc) DM-RS symbol rows per port: type-1 CDM pilots with
     the port's frequency OCC, zero elsewhere."""
@@ -674,18 +679,23 @@ def dl_slot_batch_mimo(payloads, rntis, cell: CellConfig, rv: int = 0,
     band0 = cell.first_prb * N_SC_PER_PRB
     ndata = len(cell.data_symbols)
 
-    syms = unshard(_dl_code(payloads, rntis, cell, rv, mesh=mesh))
-    # d(L*i + l) -> layer l: (S, U, ndata, w, L) -> (S, L, ndata, U*w).
-    m5 = syms.reshape(s, u, ndata, w, n_l).to(torch.complex64)
-    band = m5.permute(0, 4, 2, 1, 3).reshape(s, n_l, ndata, span)
-    grid = torch.zeros((s, n_l, t.nsymb, t.nof_subc), dtype=torch.complex64,
-                       device=dev)
-    grid[:, :, host_constant(cell.data_symbols, dev), band0:band0 + span] = band
-    grid[:, :, host_constant(cell.dmrs_symbols, dev)] = _dmrs_rows_mimo(cell, dev)
-    if extra_rows is not None:
-        grid[:, 0] += extra_rows.to(torch.complex64)
+    with l1_tracer.span("phy.dl.code"):
+        syms = unshard(_dl_code(payloads, rntis, cell, rv, mesh=mesh))
+    with l1_tracer.span("phy.dl.grid"):
+        # d(L*i + l) -> layer l: (S, U, ndata, w, L) -> (S, L, ndata, U*w).
+        m5 = syms.reshape(s, u, ndata, w, n_l).to(torch.complex64)
+        band = m5.permute(0, 4, 2, 1, 3).reshape(s, n_l, ndata, span)
+        grid = torch.zeros((s, n_l, t.nsymb, t.nof_subc), dtype=torch.complex64,
+                           device=dev)
+        grid[:, :, host_constant(cell.data_symbols, dev),
+             band0:band0 + span] = band
+        grid[:, :, host_constant(cell.dmrs_symbols, dev)] = \
+            _dmrs_rows_mimo(cell, dev)
+        if extra_rows is not None:
+            grid[:, 0] += extra_rows.to(torch.complex64)
     if not return_grid:
-        grid = ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft)
+        with l1_tracer.span("phy.dl.ofdm"):
+            grid = ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft)
     return shard(grid, mesh, ())
 
 

@@ -8,18 +8,19 @@ and the three MCS index tables are packed spec data in this package's own
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 import pathlib
 
 import numpy as np
+
+from ..utils.tracing import cached_build
 
 _DATA = pathlib.Path(__file__).resolve().parents[1] / "data" / "ldpc_graphs.npz"
 
 NRE_PER_PRB_LIMIT = 156  # min(156, N'_RE) cap, §5.1.3.2 step 1
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build
 def _tables():
     d = np.load(_DATA)
     return (d["tbs_table"],
