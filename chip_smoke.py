@@ -202,6 +202,17 @@ Phases (any failure exits non-zero):
                on the card equal to the CPU: payload bits and tb_ok exact,
                noise variance and CFO within ENTRY_RTOL of the peak.
 
+Between phases 1 and 2:
+  1a. pdsch_code — PDSCH coding's two kernels (ops/pdsch_code.py:
+               pdsch_encode, pdsch_modulate) against the plain chain they
+               replace, run on the card (segment_tb -> encoder.encode ->
+               rate_match; scramble_bits -> modulate on CUDA tensors), at the
+               benchmark cells' shapes: the normal and the SSB slots of the
+               SISO step (S = 1024) and of the 2x2 step (S = 512).  Equal
+               bits and symbols; each one's ms per call, the plain chain's,
+               and the byte bound (int8 in, int8 or complex64 out, at
+               HBM_BYTES_PER_S).
+
 Between phases 5 and 6 (they reuse the slice phase's tensors):
   5a. multi_cell — bench.py --cells=4 --sbatch=64 (the bench module's inputs
                and chained step, and its JSON line): 4 carriers x 64 slots of the 20 MHz
@@ -370,6 +381,55 @@ def awgn(td, snr_db, gen):
     real = torch.randn(td.shape, generator=gen, device=td.device)
     imag = torch.randn(td.shape, generator=gen, device=td.device)
     return torch.complex(real, imag) * sigma
+
+
+def phase_pdsch_code(sp, fcm, dev) -> dict:
+    """Phase 1a: the PDSCH kernels against the plain chain on the card at
+    the cells' shapes; {path: its row}."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops import modulation, pdsch_code, sequences
+    from srsran_edgeric_5g_tpu_torch.ops.ldpc import encoder, rate_match, segmenter
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    rows = {}
+    for tag, fc, s in (("siso", fcm.FullCellConfig(), 1024),
+                       ("mimo2x2", fcm.FullCellConfig(n_layers=2), 512)):
+        mimo = fc.n_layers > 1
+        parts = {"normal": (fc.dl_cell_mimo() if mimo else fc.dl_cell(),
+                            len(fc.norm_slots(s))),
+                 "ssb": (fc.dl_cell_ssb_mimo() if mimo else fc.dl_cell_ssb(),
+                         len(fc.ssb_slots(s)))}
+        for part, (cell, n_slots) in parts.items():
+            seg, rm = sp._plans(cell)
+            b_tb = n_slots * cell.nof_ue
+            pay = torch.randint(0, 2, (b_tb, seg.a), generator=gen, device=dev,
+                                dtype=torch.int8)
+            ci = sp._scrambling_inits(fcm._rntis(fc, dev), cell, n_slots)
+            cbs = slice(0, b_tb * seg.c)
+            kernel_encode = lambda: pdsch_code.encode(pay, seg, rm, cbs)
+            plain_encode = lambda: rate_match.rate_match(encoder.encode(
+                segmenter.segment_tb(pay, seg), seg.bg, seg.zc), rm)
+            bits = kernel_encode().reshape(b_tb, -1)
+            check(torch.equal(bits.reshape(-1, rm.e), plain_encode()),
+                  f"pdsch_encode {tag} {part}: bits differ from the plain chain")
+            kernel_mod = lambda: pdsch_code.modulate(bits, ci, cell.modulation)
+            plain_mod = lambda: modulation.modulate(sequences.scramble_bits(bits, ci),
+                                                    cell.modulation)
+            check(torch.equal(kernel_mod().view(torch.float32),
+                              plain_mod().view(torch.float32)),
+                  f"pdsch_modulate {tag} {part}: symbols differ from the plain chain")
+            g = bits.shape[1]
+            row = dict(tbs=b_tb, a=seg.a, bg=seg.bg, zc=seg.zc, c=seg.c, e=rm.e, g=g,
+                       qm=cell.qm, equal=True,
+                       encode_ms=cuda_ms(kernel_encode, 20),
+                       encode_plain_ms=cuda_ms(plain_encode, 5),
+                       encode_bound_ms=(pay.numel() + bits.numel()) / HBM_BYTES_PER_S * 1e3,
+                       modulate_ms=cuda_ms(kernel_mod, 20),
+                       modulate_plain_ms=cuda_ms(plain_mod, 5),
+                       modulate_bound_ms=(bits.numel() + 8 * b_tb * (g // cell.qm))
+                       / HBM_BYTES_PER_S * 1e3)
+            emit("pdsch_code", path=f"{tag}_{part}", **row)
+            rows[f"{tag}_{part}"] = row
+    return rows
 
 
 def phase_slice(sp, cuda_build, dev, s_batch):
@@ -719,6 +779,9 @@ def phase_full_cell(fcm, sp, pb, cuda_build, dec, dev, argv, tag):
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
     first_s = time.perf_counter() - t0
+    # The normal and the SSB slots' PDSCH coding: one launch of each kernel.
+    check(all(launches.get(k, 0) == 2 for k in ("pdsch_encode", "pdsch_modulate")),
+          f"{tag}: PDSCH kernel launches per step {launches}")
     td_shape = (s, n_l, t.cp.total) if mimo else (s, t.cp.total)
     check(tuple(td.shape) == td_shape and bool(torch.isfinite(td.real).all()
                                                 and torch.isfinite(td.imag).all()),
@@ -2997,6 +3060,7 @@ def main() -> int:
          sass=[sass_summary(str(cuda_build.build(n))) for n in cuda_build.KERNELS],
          torch=torch.__version__, cuda=torch.version.cuda)
 
+    pdsch = phase_pdsch_code(sp, fcm, dev)
     ctx = phase_slice(sp, cuda_build, dev, S_BATCH)
     check(ctx["launches"].get(decoder_cuda.KERNEL, 0) > 0,
           f"main path launched no {decoder_cuda.KERNEL} kernel")
@@ -3101,6 +3165,18 @@ def main() -> int:
         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None,
     }]
+    # The PDSCH kernels replace no Pallas kernel (the JAX package codes the
+    # PDSCH with XLA ops); their main path is the SISO step's normal slots.
+    siso = pdsch["siso_normal"]
+    for name, key in (("pdsch_encode", "encode"), ("pdsch_modulate", "modulate")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "srsran_edgeric_5g_tpu_torch/csrc/pdsch_code.cu", "replaces": None,
+            "launches": fcx["launches"].get(name, 0), "max_abs_err": 0.0,
+            "ms": siso[f"{key}_ms"], "plain_ms": siso[f"{key}_plain_ms"],
+            "bound_ms": siso[f"{key}_bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "per_path": {p: {k: v for k, v in r.items() if k.startswith(key)}
+                         for p, r in pdsch.items()}})
     check(all(math.isfinite(k["ms"]) and k["ms"] > 0 for k in kernels), "kernel times")
     emit("total", seconds=time.perf_counter() - t_start)
     print(card, flush=True)

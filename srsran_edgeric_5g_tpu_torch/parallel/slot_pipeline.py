@@ -6,8 +6,9 @@ for all UEs of a cell, or of several same-config carriers.  UE allocations
 are uniform-width and contiguous from a static first PRB, so every per-UE
 gather/scatter is a slice + reshape.
 
-DL: segment -> LDPC encode -> rate match -> scramble -> modulate -> place
-subgrids -> OFDM modulate.  UL: OFDM demod -> DM-RS estimate -> MMSE
+DL: segment -> LDPC encode -> rate match -> scramble -> modulate (two CUDA
+kernels on the card, ``ops.pdsch_code``) -> place subgrids -> OFDM
+modulate.  UL: OFDM demod -> DM-RS estimate -> MMSE
 equalize -> demap -> wire quantise -> descramble -> rate dematch (+ HARQ
 combine into the int8 soft carry) -> LDPC decode (the CUDA kernel on the
 card) -> TB CRC.  ``delay_spread_us > 0`` selects the TA + smoothing
@@ -55,9 +56,9 @@ import numpy as np
 import torch
 
 from ..device import host_constant, resolve_device
-from ..ops import channel_est, equalizer, modulation, ofdm, sequences
+from ..ops import channel_est, equalizer, modulation, ofdm, pdsch_code, sequences
 from ..ops import dmrs as dmrs_mod
-from ..ops.ldpc import decoder, encoder, rate_match, segmenter
+from ..ops.ldpc import decoder, rate_match, segmenter
 from ..ran.numerology import N_SC_PER_PRB, SlotTiming, slot_timing
 from ..ran.tbs import nof_re, tbs as tbs_calc
 from .mesh import (CB_AXIS, CELL_AXIS, HOST_AXIS, UE_AXIS, coordinate,
@@ -246,29 +247,28 @@ def _dl_code(payloads, rntis: torch.Tensor | None, cell: CellConfig,
              row_axes=ROWS, cb_axes=CODEBLOCKS):
     """Coding front-end for a (..., TBS) batch of B_tb TBs -> (B_tb, G/Qm)
     symbols: all codeblocks of all TBs go through segment -> encode -> rate
-    match -> scramble -> modulate as one batch.  ``ci`` (B_tb,) replaces the
-    per-row scrambling inits derived from ``rntis`` (which may then be None).
+    match (``pdsch_code.encode``), then every TB row through scramble ->
+    modulate (``pdsch_code.modulate``), each one CUDA kernel on the card and
+    the plain chain on the CPU.  ``ci`` (B_tb,) replaces the per-row
+    scrambling inits derived from ``rntis`` (which may then be None).
 
-    On a mesh the rank segments the TBs that hold its block of codeblocks
-    (over ``cb_axes``), encodes and rate-matches that block, gathers the
-    bits of its block of TB rows (over ``row_axes``) and returns the symbols
-    as a DTensor of those rows."""
+    On a mesh the rank codes its block of codeblocks (over ``cb_axes``) from
+    the TBs that hold them, gathers the bits of its block of TB rows (over
+    ``row_axes``) and returns the symbols as a DTensor of those rows."""
     seg, rm = _plans(cell, rv)
     c, tbs = seg.c, payloads.shape[-1]
     b_tb = math.prod(payloads.shape[:-1])
     rows, cbx = _axes(mesh, row_axes), _axes(mesh, cb_axes)
     cb_tbs, _, own = _share(b_tb, c, mesh, cbx)
     tb_rows = lambda crd: row_block(b_tb, mesh, rows, crd)
-    cbs = segmenter.segment_tb(take(payloads, mesh, cb_tbs, (b_tb, tbs), cbx),
-                               seg)[own]                      # (block, K)
-    cw = encoder.encode(cbs, seg.bg, seg.zc)                  # (block, colsZc)
-    bits = wrap(rate_match.rate_match(cw, rm), mesh, cbx, (b_tb * c, rm.e))
+    bits = pdsch_code.encode(take(payloads, mesh, cb_tbs, (b_tb, tbs), cbx),
+                             seg, rm, own)                    # (block, E)
+    bits = wrap(bits, mesh, cbx, (b_tb * c, rm.e))
     bits = take(bits, mesh, tb_rows, (b_tb, c * rm.e), rows)  # (rows, G)
     if ci is None:
         ci = _scrambling_inits(rntis, cell, b_tb // cell.nof_ue)
     r0, r1 = tb_rows(coordinate(mesh))
-    bits = sequences.scramble_bits(bits, ci[r0:r1])
-    syms = modulation.modulate(bits, cell.modulation)         # (rows, G/Qm)
+    syms = pdsch_code.modulate(bits, ci[r0:r1], cell.modulation)  # (rows, G/Qm)
     return wrap(syms, mesh, rows, (b_tb, syms.shape[-1]))
 
 
