@@ -3,11 +3,12 @@ that the window drives.
 
 The inputs are made once at set-up on the run's device: the DL payloads
 of the normal and the SSB slots, the DCIs, the MIBs, the UL payloads, the
-ACK and CSI bits, from one ``torch.Generator`` seeded with ``--seed``; the
-UE side's UL samples from the reference's own UE transmitter (through the
-configuration's static LxL channel at more than one layer); and the AWGN
-from the same generator.  The same tensors go to the measured package and
-to the reference.
+ACK and CSI bits, from one ``torch.Generator`` seeded with ``--seed``, in
+the names, shapes and order that the reference states
+(``reference/inputs.py``); the UE side's UL samples from the reference's
+own UE transmitter (through the configuration's static LxL channel at more
+than one layer); and the AWGN from the same generator.  The same tensors go
+to the measured package and to the reference.
 
 The step chains the measured package's public full-slot entry points as
 its bench chains them: the DL payload XORed with ``eps``, the AWGN sign
@@ -21,15 +22,24 @@ after the window.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch.profiler import record_function
 
+# The keys of a configuration file that describe it or the check, and are
+# no field of ``FullCellConfig``.
+META = ("source", "deployment", "assumed", "reduced", "limits", "channel")
+
 
 def full_cell_config(cls, config: dict):
     """A ``FullCellConfig`` (of the measured package or of the reference)
-    from a configuration file's fields."""
+    from a configuration file's fields; a key that is neither one of them
+    nor in ``META`` is refused, so no setting is dropped on either side."""
     names = {f.name for f in dataclasses.fields(cls)}
+    stray = sorted(set(config) - names - set(META))
+    if stray:
+        raise ValueError(f"{cls.__module__}.{cls.__name__} has no field {stray}")
     return cls(**{k: v for k, v in config.items() if k in names})
 
 
@@ -47,27 +57,15 @@ def channel_matrix(config: dict, dev: torch.device) -> torch.Tensor | None:
 def draw_inputs(config: dict, s: int, snr_db: float, seed: int,
                 dev: torch.device) -> dict:
     """Every input of the cell at ``s`` slots per step, from ``seed``."""
+    from .reference import inputs
     from .reference.parallel import full_cell as rfc
 
     fc = full_cell_config(rfc.FullCellConfig, config)
-    mimo, u = fc.n_layers > 1, fc.nof_ue
+    mimo = fc.n_layers > 1
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-
-    def bits(*shape):
-        return torch.randint(0, 2, shape, generator=gen, device=dev,
-                             dtype=torch.int8)
-
-    cell_n, cell_s = ((fc.dl_cell_mimo(), fc.dl_cell_ssb_mimo()) if mimo
-                      else (fc.dl_cell(), fc.dl_cell_ssb()))
-    n_ssb, n_csi = len(fc.ssb_slots(s)), len(fc.csi_slots(s))
-    x = dict(pay_n=bits(len(fc.norm_slots(s)), u, cell_n.derived_tbs()),
-             pay_s=bits(n_ssb, u, cell_s.derived_tbs()),
-             dci=bits(s, 2 * u, fc.dci_bits),
-             pbch=bits(n_ssb, 24),
-             pay_u=bits(s, u, fc.ul_cell().derived_tbs()),
-             ack=bits(s, u, 2),
-             csi=bits(n_csi, u, fc.csi_bits))
+    x = {name: torch.randint(0, 2, shape, generator=gen, device=dev, dtype=torch.int8)
+         for name, shape in inputs.shapes(fc, s).items()}
     if mimo:
         ue = rfc.ue_ul_slot_batch_mimo(x["pay_u"], x["ack"], x["csi"], fc, s,
                                        device=dev)
@@ -78,7 +76,7 @@ def draw_inputs(config: dict, s: int, snr_db: float, seed: int,
     sigma = torch.sqrt(sig_pow * 10.0 ** (-snr_db / 10.0) / 2.0)
     n = torch.randn(tuple(ul.shape) + (2,), generator=gen, device=dev) * sigma
     x.update(ul=ul, noise=torch.complex(n[..., 0], n[..., 1]),
-             ones=torch.ones((s, u), device=dev))
+             ones=torch.ones(x["pay_u"].shape[:2], device=dev))
     return x
 
 
@@ -129,4 +127,5 @@ class Chain:
 
     @property
     def tbs_per_step(self) -> int:
-        return self.s * self.fc.nof_ue
+        """The UL TBs of one step: those of the UL payloads drawn."""
+        return math.prod(self.x["pay_u"].shape[:2])

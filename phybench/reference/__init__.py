@@ -10,6 +10,9 @@ It imports torch and numpy only, reads its spec tables from its own
 ``data/``, and never imports the measured package: a later change to that
 package cannot move the yardstick.  ``lower_precision`` (``control.py``)
 runs it with its signal stages rounded to bfloat16, the check's control.
+
+``inputs.shapes`` states the random bit inputs of one step, in the order
+that the harness draws them from the seed for both sides.
 """
 
 import torch

@@ -248,7 +248,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, dev, t_start: float):
     last_td, last_res, last_flip = ch.td, ch.res, ch.last_flip()
     launches = (sum(cuda_build.LAUNCHES.values()) - launches0) / max(n_steps, 1)
     info.append(f"# window: {n_steps} steps of {s} slots in {seconds} s; setup_s {setup_s}; "
-                f"decode kernel launches per step {launches}")
+                f"CUDA kernel launches per step {launches}")
 
     readings = Readings(loop=loop, issue_s=issue)
     trace_out = None

@@ -25,7 +25,8 @@ def test_harness_and_reference_load_neither_jax_nor_the_port():
     mods = _top_level_after(
         "import phybench.run, phybench.check, phybench.chain, phybench.loops, "
         "phybench.spec, phybench.trace, phybench.calibrate, phybench.sweep_stream\n"
-        "import phybench.reference.parallel.full_cell, phybench.reference.control\n"
+        "import phybench.reference.parallel.full_cell, phybench.reference.control, "
+        "phybench.reference.inputs\n"
         "from phybench.spec import HERE, load_reader\n"
         "[load_reader(f.stem) for f in (HERE / 'metrics').glob('*.py') if f.stem != '__init__']")
     assert not mods & FORBIDDEN
