@@ -10,6 +10,13 @@ own UE transmitter (through the configuration's static LxL channel at more
 than one layer); and the AWGN from the same generator.  The same tensors go
 to the measured package and to the reference.
 
+The AWGN is drawn over every air slot of the step, at the traffic's SNR
+against the mean power of the UL slots' samples (``ul_slots`` of the
+reference's configuration): under a TDD slot pattern the UE is silent on
+the others, and a mean over them would lift the UL slots' SNR above the
+one stated.  In paired spectrum every slot is a UL slot, and the mean is
+taken over the whole tensor, as it always was.
+
 The step chains the measured package's public full-slot entry points as
 its bench chains them: the DL payload XORed with ``eps``, the AWGN sign
 flipped every step, the int8 HARQ carry fed back with ``new_data`` = 1,
@@ -56,7 +63,7 @@ def channel_matrix(config: dict, dev: torch.device) -> torch.Tensor | None:
 
 def draw_inputs(config: dict, s: int, snr_db: float, seed: int,
                 dev: torch.device) -> dict:
-    """Every input of the cell at ``s`` slots per step, from ``seed``."""
+    """Every input of the cell at ``s`` air slots per step, from ``seed``."""
     from .reference import inputs
     from .reference.parallel import full_cell as rfc
 
@@ -72,7 +79,8 @@ def draw_inputs(config: dict, s: int, snr_db: float, seed: int,
         ul = torch.einsum("pl,slt->spt", channel_matrix(config, dev), ue)
     else:
         ul = rfc.ue_ul_slot_batch(x["pay_u"], x["ack"], x["csi"], fc, s, device=dev)
-    sig_pow = (ul.real * ul.real + ul.imag * ul.imag).mean()
+    on = ul if not fc.tdd_period else ul[torch.as_tensor(fc.ul_slots(s), device=dev)]
+    sig_pow = (on.real * on.real + on.imag * on.imag).mean()
     sigma = torch.sqrt(sig_pow * 10.0 ** (-snr_db / 10.0) / 2.0)
     n = torch.randn(tuple(ul.shape) + (2,), generator=gen, device=dev) * sigma
     x.update(ul=ul, noise=torch.complex(n[..., 0], n[..., 1]),

@@ -2,12 +2,13 @@
 one UL slot-batch call.
 
 The reference of the benchmark's check: the measured package's full slot,
-copied with its plain decode.
+copied with its plain decode, and given a TDD slot pattern and a PRACH
+window over slots of its own, ahead of the measured package.
 
   DL TX (``gnb_dl_slot_batch``):
     * PDSCH for all UEs (the slot pipeline's coding front-end, DM-RS 0 dB);
-    * a PDCCH CORESET on symbol 0 with 2 DCIs per UE per slot, all S*2U DCIs
-      polar-encoded as one batch;
+    * a PDCCH CORESET on symbol 0 with 2 DCIs per UE per DL and special
+      slot, all the step's DCIs polar-encoded as one batch;
     * the SS/PBCH block on its occasions (those slots move their PDSCH to
       symbols 6..13), all PBCH payloads polar-encoded as one batch;
     * NZP-CSI-RS rows on their occasions;
@@ -15,19 +16,49 @@ copied with its plain decode.
       controller.
 
   UE UL TX (``ue_ul_slot_batch``): the UE-side generator — PUSCH + PUCCH F1
-    HARQ-ACK every slot + PUCCH F2 CSI, SRS and PRACH on their occasions.
+    HARQ-ACK every UL slot + PUCCH F2 CSI, SRS and PRACH on their occasions.
 
   UL RX (``gnb_ul_slot_batch``): one OFDM demodulation shared by PUSCH
     (with the int8 HARQ soft carry; the decode is the plain layered
     min-sum), PUCCH F1 detection, PUCCH F2 decode, SRS snapshots and PRACH
     detection.
 
+The slot pattern (``FullCellConfig.tdd_*``, named after srsRAN's
+``tdd_ul_dl_cfg``): ``tdd_period`` = 0, the default, is paired spectrum,
+where every slot is a DL and a UL slot.  Otherwise each period of
+``tdd_period`` slots starts with ``tdd_dl_slots`` DL slots and ends with
+``tdd_ul_slots`` UL slots; the slot after the DL slots is the special slot
+when ``tdd_dl_symbols`` > 0, DL on its first ``tdd_dl_symbols`` symbols.
+The special slot carries the PDCCH and, when its symbol is among those,
+the CSI-RS, and no PDSCH; its ``tdd_ul_symbols`` UL symbols and any other
+slot between the DL and the UL slots carry nothing.  That departs from
+srsRAN, which may schedule a shortened PDSCH in the special slot.  SSB and
+PDSCH slots are full DL slots, CSI-RS slots DL or special slots; PUCCH F1
+runs on every UL slot, and the F2, SRS and PRACH occasions are UL slots.
+An occasion on a slot of another kind is refused (``ValueError``, naming
+the occasion and the slot) when the step's slots are classified, so
+nothing is dropped silently.
+
+The entry points speak in air slots: every call covers ``S`` consecutive
+slots from slot 0, and slot indices given to sequences and scrambling are
+the air slot's own, so a DL slot of a TDD step equals the same slot of a
+paired step fed the same bits.  ``gnb_dl_slot_batch`` returns all ``S``
+slots, zero on UL slots and after the special slot's DL symbols;
+``ue_ul_slot_batch`` takes the UL slots' bits and returns all ``S`` slots,
+non-zero on UL slots only; ``gnb_ul_slot_batch`` takes all ``S`` slots and
+returns results for the UL slots alone (``S_ul`` rows; F2, SRS and PRACH
+on their occasions).  A format-0 PRACH preamble longer than a slot (at
+mu = 1: 110961 samples against 61440) spans consecutive UL slots from its
+occasion's first slot, and the receiver reads its window from those slots
+joined; an occasion that reaches a slot that is not UL, or runs past the
+step's last slot, is refused.
+
 The reference's TPU workarounds are written in PyTorch's plain idiom: slot
-occasion selection and re-interleaving are strided slices, and the PRACH
-correlation's prime-length (839) IDFT is ``torch.fft.ifft`` instead of an
-IDFT matmul.  Host constants (pilots, sequences, mappings) are built once
-per (config, S) in numpy and cached as device tensors per device, so a
-step copies nothing from the host.
+occasion selection and re-interleaving are slices or gathers along the
+slot axis, and the PRACH correlation's prime-length (839) IDFT is
+``torch.fft.ifft`` instead of an IDFT matmul.  Host constants (pilots,
+sequences, mappings) are built once per (config, S) in numpy and cached as
+device tensors per device, so a step copies nothing from the host.
 
 The MIMO variants (``gnb_dl_slot_batch_mimo``, ``ue_ul_slot_batch_mimo``,
 ``gnb_ul_slot_batch_mimo``) run PDSCH/PUSCH at ``n_layers`` layers through
@@ -40,11 +71,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import host_constant, resolve_device
 from ..models import pdcch as pdcch_mod, ssb as ssb_mod
 from ..ops import amplitude, csi_rs, modulation, ofdm, prach as prach_mod
 from ..ops import pucch as pucch_mod, sequences, short_block, sync_signals
@@ -57,51 +89,53 @@ from . import slot_pipeline as sp
 SQRT2 = float(np.sqrt(2.0))
 
 
-def _slot_slice(idx: np.ndarray) -> slice:
-    """The slot-axis slice of an occasion set: every set here is an
-    arithmetic progression (offset::period)."""
+def _slot_sel(idx: np.ndarray, device: torch.device):
+    """The slot-axis index of a set of slots: a slice where the set is an
+    arithmetic progression (offset::period), else an index tensor."""
     idx = np.asarray(idx, dtype=np.int64)
     if idx.size == 0:
         return slice(0, 0)
     step = int(idx[1] - idx[0]) if idx.size > 1 else 1
-    if step <= 0 or not (np.diff(idx) == step).all():
-        raise ValueError(f"occasion slots {idx} are not offset::period")
-    return slice(int(idx[0]), int(idx[-1]) + 1, step)
+    if step > 0 and (np.diff(idx) == step).all():
+        return slice(int(idx[0]), int(idx[-1]) + 1, step)
+    return host_constant(idx, device)
 
 
 def _slot_take(x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-    """x[idx] along the slot axis, as a strided slice."""
-    return x[_slot_slice(idx)]
+    """x[idx] along the slot axis."""
+    return x[_slot_sel(idx, x.device)]
 
 
-def _slot_drop_period(x: torch.Tensor, k: int) -> torch.Tensor:
-    """x[i] for i % k != 0 (the complement of the period-k occasions at
-    offset 0): a reshape and a slice."""
-    n, rest = x.shape[0], x.shape[1:]
-    nb = n // k
-    head = x[:nb * k].reshape(nb, k, *rest)[:, 1:].reshape(nb * (k - 1), *rest)
-    return head if n == nb * k else torch.cat([head, x[nb * k + 1:]])
+def _slot_put(x: torch.Tensor, idx: np.ndarray, s_total: int) -> torch.Tensor:
+    """The rows of ``x`` placed at slots ``idx`` of ``s_total`` slots, zero
+    elsewhere (``x`` itself where ``idx`` is every slot)."""
+    if len(idx) != x.shape[0]:
+        raise ValueError(f"{x.shape[0]} rows for {len(idx)} slots")
+    if len(idx) == s_total:
+        return x
+    return _slot_merge([(x, idx)], x.shape[1:], s_total, x)
 
 
-def _slot_merge_period(x_occ: torch.Tensor, x_norm: torch.Tensor, k: int,
-                       s_total: int) -> torch.Tensor:
-    """Re-interleave the period-k occasion slots (i % k == 0) and their
-    complement back to slot order."""
-    rest = x_norm.shape[1:]
-    nb = s_total // k
-    out = x_norm.new_empty((s_total, *rest))
-    out[0::k] = x_occ
-    out[:nb * k].view(nb, k, *rest)[:, 1:] = \
-        x_norm[:nb * (k - 1)].reshape(nb, k - 1, *rest)
-    out[nb * k + 1:] = x_norm[nb * (k - 1):]
+def _slot_merge(parts, rest: tuple, s_total: int,
+                like: torch.Tensor) -> torch.Tensor:
+    """(S, *rest) slots in slot order from (rows, slots) parts; a slot that
+    no part names is zero."""
+    out = like.new_zeros((s_total, *rest))
+    for x, idx in parts:
+        out[_slot_sel(idx, out.device)] = x
     return out
+
+
+def _slots(cond, s: int) -> np.ndarray:
+    """The slots of ``range(s)`` for which ``cond`` holds."""
+    return np.asarray([i for i in range(s) if cond(i)], dtype=np.int64)
 
 
 @dataclasses.dataclass(frozen=True)
 class FullCellConfig:
-    """Static full-cell geometry + control-channel periodicities (the same
-    fields as the reference's FullCellConfig; ``convert.full_cell_from_dict``
-    carries one across)."""
+    """Static full-cell geometry + control-channel periodicities: the
+    measured package's ``FullCellConfig`` fields, and the TDD slot pattern
+    (``tdd_*``) of the reference's own."""
 
     nof_prb: int = 106
     nfft: int = 1536
@@ -154,6 +188,42 @@ class FullCellConfig:
     # PUSCH channel estimator: 0 = LS + interpolation, > 0 = TA + smoothing
     # over this delay spread.
     ul_delay_spread_us: float = 0.0
+    # TDD slot pattern (srsRAN's tdd_ul_dl_cfg; the module docstring):
+    # period 0 = paired spectrum, every slot DL and UL.
+    tdd_period: int = 0
+    tdd_dl_slots: int = 0
+    tdd_dl_symbols: int = 0
+    tdd_ul_slots: int = 0
+    tdd_ul_symbols: int = 0
+
+    def __post_init__(self):
+        p, d, ds = self.tdd_period, self.tdd_dl_slots, self.tdd_dl_symbols
+        u, us = self.tdd_ul_slots, self.tdd_ul_symbols
+        pattern = (f"TDD pattern period {p}, {d} DL slots + {ds} symbols, "
+                   f"{u} UL slots + {us} symbols")
+        if p == 0:
+            if d or ds or u or us:
+                raise ValueError(f"{pattern}: paired spectrum (period 0) "
+                                 "takes no other tdd_* field")
+            return
+        nsymb = self.timing.nsymb
+        if not (p > 0 and d >= 1 and u >= 1 and d + u <= p
+                and 0 <= ds < nsymb and 0 <= us < nsymb):
+            raise ValueError(f"{pattern}: not a pattern (1 <= DL slots, "
+                             f"1 <= UL slots, DL + UL slots <= period, "
+                             f"symbols 0..{nsymb - 1})")
+        if (ds or us) and d + u == p:
+            raise ValueError(f"{pattern}: no slot is left for the symbols")
+        if d + u + 1 == p and ds + us > nsymb:
+            raise ValueError(f"{pattern}: the special slot has {nsymb} symbols")
+        # Every occasion of one common period on a slot of its kind.
+        s = math.lcm(p, self.ssb_period, max(self.csi_rs_period, 1),
+                     self.csi_period, self.srs_period, self.prach_period)
+        for occasions in (self.ssb_slots, self.csi_rs_slots, self.csi_slots,
+                          self.srs_slots):
+            occasions(s)
+        self._prach_fits(self._occasions("PRACH", s, self.prach_period,
+                                         self.prach_offset, self.ul_slots(s)))
 
     # ------------------------------------------------------- derived cells
 
@@ -194,29 +264,103 @@ class FullCellConfig:
 
     # ------------------------------------------------ slot classification
 
+    def dl_slots(self, s: int) -> np.ndarray:
+        """The full DL slots of a step of ``s`` air slots."""
+        p = self.tdd_period
+        return _slots(lambda i: not p or i % p < self.tdd_dl_slots, s)
+
+    def special_slots(self, s: int) -> np.ndarray:
+        """The special slots: DL on their first ``tdd_dl_symbols`` symbols."""
+        p = self.tdd_period
+        return _slots(lambda i: p and self.tdd_dl_symbols
+                      and i % p == self.tdd_dl_slots, s)
+
+    def ul_slots(self, s: int) -> np.ndarray:
+        """The UL slots."""
+        p = self.tdd_period
+        return _slots(lambda i: not p or i % p >= p - self.tdd_ul_slots, s)
+
+    def _kind(self, i: int) -> str:
+        p = self.tdd_period
+        if not p:
+            return "paired"
+        j = i % p
+        if j < self.tdd_dl_slots:
+            return "DL"
+        if j >= p - self.tdd_ul_slots:
+            return "UL"
+        return ("special" if self.tdd_dl_symbols and j == self.tdd_dl_slots
+                else "flexible")
+
+    def _occasions(self, name: str, s: int, period: int, offset: int,
+                   allowed: np.ndarray) -> np.ndarray:
+        """The slots ``i % period == offset``; each has to be in ``allowed``."""
+        occ = _slots(lambda i: i % period == offset, s)
+        for i in np.setdiff1d(occ, allowed):
+            raise ValueError(f"the {name} occasion at slot {i} falls on a "
+                             f"{self._kind(int(i))} slot of the TDD pattern")
+        return occ
+
     def ssb_slots(self, s: int) -> np.ndarray:
-        return np.arange(0, s, self.ssb_period)
+        return self._occasions("SSB", s, self.ssb_period, 0, self.dl_slots(s))
 
     def norm_slots(self, s: int) -> np.ndarray:
-        return np.asarray([i for i in range(s) if i % self.ssb_period != 0])
+        """The full DL slots without SSB: the normal PDSCH slots."""
+        return np.setdiff1d(self.dl_slots(s), self.ssb_slots(s))
+
+    def pdcch_slots(self, s: int) -> np.ndarray:
+        """The DL and special slots: those with a PDCCH."""
+        return np.union1d(self.dl_slots(s), self.special_slots(s))
 
     def csi_slots(self, s: int) -> np.ndarray:
-        return np.asarray([i for i in range(s)
-                           if i % self.csi_period == self.csi_offset])
+        return self._occasions("PUCCH F2", s, self.csi_period, self.csi_offset,
+                               self.ul_slots(s))
 
     def srs_slots(self, s: int) -> np.ndarray:
-        return np.asarray([i for i in range(s)
-                           if i % self.srs_period == self.srs_offset])
+        return self._occasions("SRS", s, self.srs_period, self.srs_offset,
+                               self.ul_slots(s))
 
-    def prach_slots(self, s: int) -> np.ndarray:
-        return np.asarray([i for i in range(s)
-                           if i % self.prach_period == self.prach_offset])
+    def prach_span(self, delay: int = 0) -> int:
+        """The slots over which a PRACH occasion delayed by ``delay``
+        samples reaches from its first slot."""
+        info = self.prach_info()
+        return -(-(delay + info.cp_samples + info.dft_size)
+                 // self.timing.cp.total)
+
+    def prach_slots(self, s: int, delay: int = 0) -> np.ndarray:
+        """The first slots of the PRACH occasions; each occasion, delayed by
+        ``delay`` samples, lies on UL slots within the step."""
+        occ = self._occasions("PRACH", s, self.prach_period, self.prach_offset,
+                              self.ul_slots(s))
+        self._prach_fits(occ, delay, s)
+        return occ
+
+    def _prach_fits(self, occ: np.ndarray, delay: int = 0,
+                    s: int | None = None) -> None:
+        """Each occasion from its first slot in ``occ`` reaches UL slots
+        only (and no slot past ``s``)."""
+        n = self.prach_span(delay)
+        for i in occ:
+            for j in range(int(i) + 1, int(i) + n):
+                if s is not None and j >= s:
+                    raise ValueError(f"the PRACH occasion at slot {i} runs "
+                                     f"past the step's last slot {s - 1}")
+                if self._kind(j) not in ("UL", "paired"):
+                    raise ValueError(f"the PRACH occasion at slot {i} runs "
+                                     f"onto the {self._kind(j)} slot {j}")
 
     def csi_rs_slots(self, s: int) -> np.ndarray:
         if self.csi_rs_period <= 0:
             return np.asarray([], dtype=np.int64)
-        return np.asarray([i for i in range(s)
-                           if i % self.csi_rs_period == self.csi_rs_offset])
+        dl = self.dl_slots(s)
+        if self.csi_rs_symbol < self.tdd_dl_symbols:
+            dl = np.union1d(dl, self.special_slots(s))
+        return self._occasions("CSI-RS", s, self.csi_rs_period,
+                               self.csi_rs_offset, dl)
+
+    def _ul_pos(self, slots: np.ndarray, s: int) -> np.ndarray:
+        """The rows of UL slots ``slots`` among the step's UL slots."""
+        return np.searchsorted(self.ul_slots(s), slots)
 
     def csi_rs_cfg(self, slot: int) -> csi_rs.CsiRsConfig:
         return csi_rs.CsiRsConfig(scrambling_id=self.pci, slot=slot,
@@ -270,8 +414,8 @@ def _dev(*arrays, device):
 
 @functools.lru_cache(maxsize=None)
 def _pdcch_static(fc: FullCellConfig, s_total: int):
-    """Static PDCCH mapping: (cfgs, data_sc, dmrs_sc, per-slot DM-RS values,
-    per-DCI scrambling inits, per-DCI RNTI CRC masks)."""
+    """Static PDCCH mapping: (cfgs, data_sc, dmrs_sc, DM-RS values per
+    PDCCH slot, per-DCI scrambling inits, per-DCI RNTI CRC masks)."""
     cfgs = fc.pdcch_cfgs()
     pos = [pdcch_mod._re_positions(c) for c in cfgs]
     data_sc = np.concatenate([p[0] for p in pos])
@@ -280,7 +424,7 @@ def _pdcch_static(fc: FullCellConfig, s_total: int):
     dmrs_sc = np.unique(np.concatenate([p[1] for p in pos]))
     dmrs_vals = np.stack([
         pdcch_mod._dmrs_values(dataclasses.replace(cfgs[0], slot=sl), dmrs_sc, 0)
-        for sl in range(s_total)])                          # (S, ndmrs)
+        for sl in fc.pdcch_slots(s_total)])                 # (S_pdcch, ndmrs)
     ci = np.asarray([pdcch_mod._scrambling_cinit(c) for c in cfgs], np.int64)
     rnti_mask = np.asarray([[(c.rnti >> (15 - i)) & 1 for i in range(16)]
                             for c in cfgs], np.int8)
@@ -290,24 +434,28 @@ def _pdcch_static(fc: FullCellConfig, s_total: int):
 @functools.lru_cache(maxsize=None)
 def _pdcch_tensors(fc: FullCellConfig, s_total: int, device: torch.device):
     _, data_sc, dmrs_sc, dmrs_vals, ci, rnti_mask = _pdcch_static(fc, s_total)
-    return _dev(data_sc, dmrs_sc, dmrs_vals, np.tile(ci, s_total),
-                np.tile(rnti_mask, (s_total, 1)), device=device)
+    n = len(dmrs_vals)
+    return _dev(data_sc, dmrs_sc, dmrs_vals, np.tile(ci, n),
+                np.tile(rnti_mask, (n, 1)), device=device)
 
 
 def pdcch_rows(dci: torch.Tensor, fc: FullCellConfig,
                s_total: int) -> torch.Tensor:
-    """(S, NDCI, A) DCI payloads -> (S, nsubc) CORESET symbol rows.
+    """(S_pdcch, NDCI, A) DCI payloads of the DL and special slots ->
+    (S, nsubc) CORESET symbol rows of every slot (zero on the others).
 
-    All S*NDCI DCIs go through one CRC24C + RNTI mask -> polar -> rate match
-    -> scramble -> QPSK chain; the DM-RS values are per-slot host constants.
+    All S_pdcch*NDCI DCIs go through one CRC24C + RNTI mask -> polar -> rate
+    match -> scramble -> QPSK chain; the DM-RS values are per-slot host
+    constants.
     """
     cfgs = _pdcch_static(fc, s_total)[0]
     data_sc, dmrs_sc, dmrs_vals, ci, mask = _pdcch_tensors(fc, s_total,
                                                            dci.device)
     s, ndci, a = dci.shape
-    if s != s_total or ndci != len(cfgs):
-        raise ValueError(f"DCIs {tuple(dci.shape)} for S={s_total}, "
-                         f"{len(cfgs)} DCIs per slot")
+    slots = fc.pdcch_slots(s_total)
+    if s != len(slots) or ndci != len(cfgs):
+        raise ValueError(f"DCIs {tuple(dci.shape)} for {len(slots)} PDCCH "
+                         f"slots of S={s_total}, {len(cfgs)} DCIs per slot")
     code = pdcch_mod._polar(cfgs[0])
     pay = dci.reshape(s * ndci, a).to(torch.int8)
     ones = torch.ones((s * ndci, 24), dtype=torch.int8, device=dci.device)
@@ -320,7 +468,7 @@ def pdcch_rows(dci: torch.Tensor, fc: FullCellConfig,
                        device=dci.device)
     rows[:, data_sc] = syms.reshape(s, -1)
     rows[:, dmrs_sc] = dmrs_vals
-    return rows
+    return _slot_put(rows, slots, s_total)
 
 
 @functools.lru_cache(maxsize=None)
@@ -398,11 +546,13 @@ def _rntis(fc: FullCellConfig, device: torch.device) -> torch.Tensor:
 def gnb_dl_slot_batch(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
                       s_total: int, device: str | torch.device = "cuda"
                       ) -> torch.Tensor:
-    """Full DL slot batch -> (S, total) complex64 baseband samples.
+    """Full DL slot batch -> (S, total) complex64 baseband samples of the S
+    air slots (zero on UL slots and after the special slot's DL symbols).
 
-    pay_norm: (S_norm, U, TBS_dl) PDSCH payloads of the non-SSB slots;
-    pay_ssb: (S_ssb, U, TBS_dl_ssb) payloads of the SSB slots (shorter
-    PDSCH); dci: (S, 2U, A) DCI payloads; pbch: (S_ssb, 24) MIB payloads.
+    pay_norm: (S_norm, U, TBS_dl) PDSCH payloads of the full DL slots
+    without SSB; pay_ssb: (S_ssb, U, TBS_dl_ssb) payloads of the SSB slots
+    (shorter PDSCH); dci: (S_pdcch, 2U, A) DCI payloads of the DL and
+    special slots; pbch: (S_ssb, 24) MIB payloads.
     """
     dev = resolve_device(device)
     pay_norm, pay_ssb = sp._on(pay_norm, dev), sp._on(pay_ssb, dev)
@@ -413,19 +563,16 @@ def gnb_dl_slot_batch(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
     if ssb_idx[0] != 0:
         raise ValueError("the SSB occasions must start at slot 0")
     rntis = _rntis(fc, dev)
-    u, k = fc.nof_ue, fc.ssb_period
+    u = fc.nof_ue
 
     syms_n = sp._dl_code(pay_norm, rntis, cell_n).reshape(len(norm_idx), u, -1)
     syms_s = sp._dl_code(pay_ssb, rntis, cell_s).reshape(len(ssb_idx), u, -1)
-    prows = pdcch_rows(dci, fc, s_total)                    # (S, nsubc)
+    extra = _dl_control_rows(dci, fc, s_total)              # (S, nsymb, nsubc)
     blocks = ssb_blocks(pbch, fc, s_total)                  # (S_ssb, 4, 240)
 
-    rows_n = {0: _slot_drop_period(prows, k)}
-    rows_s = {0: prows[0::k]}
-    if fc.csi_rs_period > 0:
-        crows = _csi_rs_rows(fc, s_total, dev)
-        rows_n[fc.csi_rs_symbol] = _slot_drop_period(crows, k)
-        rows_s[fc.csi_rs_symbol] = crows[0::k]
+    syms_rows = [0] + ([fc.csi_rs_symbol] if fc.csi_rs_period > 0 else [])
+    rows_n = {l: _slot_take(extra[:, l], norm_idx) for l in syms_rows}
+    rows_s = {l: _slot_take(extra[:, l], ssb_idx) for l in syms_rows}
     sc0 = fc.ssb_first_subcarrier
     for j in range(4):
         row = torch.zeros((len(ssb_idx), t.nof_subc), dtype=torch.complex64,
@@ -434,7 +581,10 @@ def gnb_dl_slot_batch(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
         rows_s[2 + j] = rows_s[2 + j] + row if 2 + j in rows_s else row
     g_n = sp._dl_grid(syms_n, cell_n, dmrs_scale=1.0, add_rows=rows_n)
     g_s = sp._dl_grid(syms_s, cell_s, dmrs_scale=1.0, add_rows=rows_s)
-    grid = _slot_merge_period(g_s, g_n, k, s_total)
+    sp_idx = fc.special_slots(s_total)
+    grid = _slot_merge([(g_s, ssb_idx), (g_n, norm_idx),
+                        (_slot_take(extra, sp_idx), sp_idx)],
+                       g_n.shape[1:], s_total, g_n)
     return _tx_amplitude(ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft), fc)
 
 
@@ -449,18 +599,19 @@ def _tx_amplitude(td: torch.Tensor, fc: FullCellConfig) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _f1_static(fc: FullCellConfig, s_total: int):
-    """PUCCH F1 low-PAPR sequences per (slot, symbol) + OCC row: one UE per
-    PRB with initial_cs 0 and occ 0, so the values are UE-independent."""
+    """PUCCH F1 low-PAPR sequences per (UL slot, symbol) + OCC row: one UE
+    per PRB with initial_cs 0 and occ 0, so the values are UE-independent."""
     cfg0 = pucch_mod.Pucch01Config(n_id=fc.n_id, slot=0, start_symbol=0,
                                    nof_symbols=14, initial_cs=0)
     ndata = 7
-    data_seq = np.empty((s_total, ndata, 12), np.complex64)
-    dmrs_seq = np.empty((s_total, ndata, 12), np.complex64)
-    for sl in range(s_total):
-        c = dataclasses.replace(cfg0, slot=sl)
+    ul = fc.ul_slots(s_total)
+    data_seq = np.empty((len(ul), ndata, 12), np.complex64)
+    dmrs_seq = np.empty((len(ul), ndata, 12), np.complex64)
+    for i, sl in enumerate(ul):
+        c = dataclasses.replace(cfg0, slot=int(sl))
         for m in range(ndata):
-            data_seq[sl, m] = pucch_mod._f0_sequence(c, 0, 2 * m + 1)
-            dmrs_seq[sl, m] = pucch_mod._f0_sequence(c, 0, 2 * m)
+            data_seq[i, m] = pucch_mod._f0_sequence(c, 0, 2 * m + 1)
+            dmrs_seq[i, m] = pucch_mod._f0_sequence(c, 0, 2 * m)
     return data_seq, dmrs_seq, pucch_mod._occ(ndata, 0)
 
 
@@ -471,8 +622,8 @@ def _f1_tensors(fc: FullCellConfig, s_total: int, device: torch.device):
 
 def _f1_symbols(ack: torch.Tensor, fc: FullCellConfig,
                 s_total: int) -> torch.Tensor:
-    """(S, U, 2) ACK bits -> (S, 14, 12U) PUCCH F1 REs (QPSK data on odd
-    symbols, DM-RS on even; UE u on PRB u)."""
+    """(S_ul, U, 2) ACK bits -> (S_ul, 14, 12U) PUCCH F1 REs (QPSK data on
+    odd symbols, DM-RS on even; UE u on PRB u)."""
     data_seq, dmrs_seq, w = _f1_tensors(fc, s_total, ack.device)
     s, u, _ = ack.shape
     b = ack.to(torch.float32)
@@ -484,9 +635,9 @@ def _f1_symbols(ack: torch.Tensor, fc: FullCellConfig,
 
 
 def _f1_detect(rx_grid: torch.Tensor, fc: FullCellConfig, s_total: int):
-    """(S, nsymb, nsubc) grid -> ((S, U, 2) ACK bits, (S, U) |metric|): the
-    DM-RS despread estimates each occasion's channel, the data despread is
-    derotated by it."""
+    """(S_ul, nsymb, nsubc) grids of the UL slots -> ((S_ul, U, 2) ACK bits,
+    (S_ul, U) |metric|): the DM-RS despread estimates each occasion's
+    channel, the data despread is derotated by it."""
     data_seq, dmrs_seq, w = _f1_tensors(fc, s_total, rx_grid.device)
     u, s = fc.nof_ue, rx_grid.shape[0]
     rx = rx_grid[:, :14, :u * 12].reshape(s, 7, 2, u, 12)
@@ -617,9 +768,11 @@ def _prach_detect_batch(rx_freq: torch.Tensor, fc: FullCellConfig):
 
 def prach_occasion_td(fc: FullCellConfig, preamble_index: int,
                       delay: int = 24, amplitude: float = 1.0) -> np.ndarray:
-    """Static time-domain PRACH occasion, padded to one slot and delayed:
-    the UE-side transmit, with a raised-cosine edge taper over half the CP
-    on each side (a rectangular window leaks across the 15 kHz grid)."""
+    """Static time-domain PRACH occasion, delayed and padded to whole slots:
+    the UE-side transmit, (``fc.prach_span(delay)``, total) samples of the
+    consecutive slots that it reaches from its first, with a raised-cosine
+    edge taper over half the CP on each side (a rectangular window leaks
+    across the 15 kHz grid)."""
     cfg = fc.prach_cfg()
     info = fc.prach_info()
     u_root, cv = cfg.preamble(preamble_index)
@@ -634,39 +787,64 @@ def prach_occasion_td(fc: FullCellConfig, preamble_index: int,
     td[-ramp:] *= w[::-1]
     td = (td / np.sqrt(np.mean(np.abs(td) ** 2)) * amplitude).astype(np.complex64)
     total = fc.timing.cp.total
-    out = np.zeros(total, np.complex64)
-    n = min(len(td), total - delay)
-    out[delay:delay + n] = td[:n]
-    return out
+    out = np.zeros(fc.prach_span(delay) * total, np.complex64)
+    out[delay:delay + len(td)] = td
+    return out.reshape(-1, total)
+
+
+# The UE's PRACH delay when none is given: a time, so that a cell at another
+# rate sees the same path; the 24 samples at 23.04 Msps of the 20 MHz cells.
+PRACH_DELAY_S = 24 / 23.04e6
+
+
+def _add_prach(td: torch.Tensor, fc: FullCellConfig, s_total: int,
+               preamble: int, delay: int | None, amplitude: float) -> None:
+    """Add the PRACH occasion into the (S, ...) air samples ``td`` (on the
+    first port where there is a port axis), from each occasion's first
+    slot onward."""
+    if delay is None:
+        delay = round(PRACH_DELAY_S * fc.timing.srate)
+    occ = fc.prach_slots(s_total, delay)
+    ptd = torch.as_tensor(prach_occasion_td(fc, preamble, delay, amplitude),
+                          device=td.device)
+    for j, row in enumerate(ptd):
+        sel = _slot_sel(occ + j, td.device)
+        if td.dim() == 2:
+            td[sel] += row
+        else:
+            td[sel, 0] += row
 
 
 # ============================================================ UE UL TX
 
 def _ue_ul_control(ack: torch.Tensor, csi: torch.Tensor, fc: FullCellConfig,
                    s_total: int) -> torch.Tensor:
-    """(S, nsymb, nsubc) UE control contribution: PUCCH F1 every slot, F2
-    CSI and SRS on their occasions."""
+    """(S_ul, nsymb, nsubc) UE control contribution of the UL slots: PUCCH
+    F1 on every one, F2 CSI and SRS on their occasions."""
     dev = ack.device
     t = fc.timing
     u = fc.nof_ue
-    extra = torch.zeros((s_total, t.nsymb, t.nof_subc), dtype=torch.complex64,
-                        device=dev)
+    extra = torch.zeros((len(fc.ul_slots(s_total)), t.nsymb, t.nof_subc),
+                        dtype=torch.complex64, device=dev)
     extra[:, :14, :u * 12] = _f1_symbols(ack, fc, s_total)
-    extra[_slot_slice(fc.csi_slots(s_total)), 0:2] += \
+    extra[_slot_sel(fc._ul_pos(fc.csi_slots(s_total), s_total), dev), 0:2] += \
         _f2_symbols(csi, fc, s_total)
-    extra[_slot_slice(fc.srs_slots(s_total)), 13] += _srs_tensors(fc, dev)[2]
+    extra[_slot_sel(fc._ul_pos(fc.srs_slots(s_total), s_total), dev), 13] += \
+        _srs_tensors(fc, dev)[2]
     return extra
 
 
 def ue_ul_slot_batch(payloads, ack, csi, fc: FullCellConfig, s_total: int,
-                     prach_preamble: int = 7, prach_delay: int = 24,
+                     prach_preamble: int = 7, prach_delay: int | None = None,
                      prach_amplitude: float = 0.002,
                      device: str | torch.device = "cuda") -> torch.Tensor:
-    """UE-side UL generator: (S, U, TBS_ul) PUSCH payloads + (S, U, 2) ACK
-    bits + (S_csi, U, K) CSI bits -> (S, total) clean UL samples with
-    PUSCH + PUCCH F1 (+ F2 / SRS / PRACH on their occasions).  The PRACH
+    """UE-side UL generator: (S_ul, U, TBS_ul) PUSCH payloads + (S_ul, U, 2)
+    ACK bits of the UL slots + (S_csi, U, K) CSI bits -> (S, total) clean
+    samples of the S air slots, with PUSCH + PUCCH F1 (+ F2 / SRS / PRACH
+    on their occasions) on the UL slots and zero elsewhere.  The PRACH
     preamble arrives ``prach_amplitude`` under the PUSCH RMS (open-loop
-    power control targets the detector, not the PUSCH level)."""
+    power control targets the detector, not the PUSCH level), delayed by
+    ``prach_delay`` samples (None: ``PRACH_DELAY_S`` at the cell's rate)."""
     cell = fc.ul_cell()
     sp._check_siso(cell)
     dev = resolve_device(device)
@@ -678,27 +856,26 @@ def ue_ul_slot_batch(payloads, ack, csi, fc: FullCellConfig, s_total: int,
     grid = sp._dl_grid(syms, cell)                # PUSCH DM-RS boost sqrt(2)
     td = ofdm.modulate_slot(grid + _ue_ul_control(ack, csi, fc, s_total), t,
                             scale=1.0 / t.nfft)
-    ptd = torch.as_tensor(prach_occasion_td(fc, prach_preamble, prach_delay,
-                                            prach_amplitude), device=dev)
-    td[_slot_slice(fc.prach_slots(s_total))] += ptd
+    td = _slot_put(td, fc.ul_slots(s_total), s_total)
+    _add_prach(td, fc, s_total, prach_preamble, prach_delay, prach_amplitude)
     return td
 
 
 def ue_ul_slot_batch_mimo(payloads, ack, csi, fc: FullCellConfig, s_total: int,
-                          prach_preamble: int = 7, prach_delay: int = 24,
+                          prach_preamble: int = 7, prach_delay: int | None = None,
                           prach_amplitude: float = 0.002,
                           device: str | torch.device = "cuda") -> torch.Tensor:
-    """UE-side MIMO UL generator: (S, U, TBS_L) PUSCH payloads (+ ACK / CSI)
-    -> (S, L, total) per-port samples.  PUSCH layers on all ports; PUCCH
-    F1/F2, SRS and the PRACH occasion on port 0."""
+    """UE-side MIMO UL generator: (S_ul, U, TBS_L) PUSCH payloads (+ ACK /
+    CSI) -> (S, L, total) per-port samples of the S air slots, as
+    ``ue_ul_slot_batch``.  PUSCH layers on all ports; PUCCH F1/F2, SRS and
+    the PRACH occasion on port 0."""
     dev = resolve_device(device)
     ack, csi = (sp._on(x, dev) for x in (ack, csi))
     td = sp.dl_slot_batch_mimo(
         payloads, _rntis(fc, dev), fc.ul_cell(),
-        extra_rows=_ue_ul_control(ack, csi, fc, s_total), device=dev)  # (S, L, total)
-    ptd = torch.as_tensor(prach_occasion_td(fc, prach_preamble, prach_delay,
-                                            prach_amplitude), device=dev)
-    td[_slot_slice(fc.prach_slots(s_total)), 0] += ptd
+        extra_rows=_ue_ul_control(ack, csi, fc, s_total), device=dev)
+    td = _slot_put(td, fc.ul_slots(s_total), s_total)       # (S, L, total)
+    _add_prach(td, fc, s_total, prach_preamble, prach_delay, prach_amplitude)
     return td
 
 
@@ -707,17 +884,21 @@ def ue_ul_slot_batch_mimo(payloads, ack, csi, fc: FullCellConfig, s_total: int,
 def _ul_results(payload, tb_ok, nv, cfo, soft, sweeps, rx_grid0, rx0,
                 fc: FullCellConfig, s_total: int, soft_flat: bool) -> dict:
     """The UL result dict: the PUSCH outputs, and the single-port control
-    channels detected on one antenna's grid ``rx_grid0`` (S, nsymb, nsubc)
-    and samples ``rx0`` (S, total)."""
+    channels detected on one antenna's grids of the UL slots ``rx_grid0``
+    (S_ul, nsymb, nsubc) and samples of the air slots ``rx0`` (S, total);
+    each PRACH window is read from its occasion's slots joined."""
     s, u = rx_grid0.shape[0], fc.nof_ue
     seg, rm = sp._plans(fc.ul_cell(), 0)
     ack_bits, ack_metric = _f1_detect(rx_grid0, fc, s_total)
-    csi_bits, csi_ok = _f2_decode(_slot_take(rx_grid0, fc.csi_slots(s_total)),
-                                  fc, s_total)
-    srs_h, srs_snr = _srs_estimate(_slot_take(rx_grid0, fc.srs_slots(s_total)),
-                                   fc)
+    csi_bits, csi_ok = _f2_decode(
+        _slot_take(rx_grid0, fc._ul_pos(fc.csi_slots(s_total), s_total)),
+        fc, s_total)
+    srs_h, srs_snr = _srs_estimate(
+        _slot_take(rx_grid0, fc._ul_pos(fc.srs_slots(s_total), s_total)), fc)
     info = fc.prach_info()
-    win = _slot_take(rx0, fc.prach_slots(s_total))[
+    occ = fc.prach_slots(s_total)
+    win = torch.stack([_slot_take(rx0, occ + j) for j in range(fc.prach_span())],
+                      dim=1).reshape(len(occ), -1)[
         :, :info.cp_samples + info.dft_size]
     rx_freq = prach_mod.ofdm_demodulate_prach(win, info)
     pr_metric, pr_delay, pr_det = _prach_detect_batch(rx_freq, fc)
@@ -744,22 +925,26 @@ def gnb_ul_slot_batch(rx, fc: FullCellConfig, s_total: int,
                       num_iters: int = decoder.DEFAULT_ITERS,
                       soft_flat: bool = False, early_stop: bool = True,
                       device: str | torch.device = "cuda") -> dict:
-    """Full UL slot batch: (S, total) samples -> every UL channel's results.
+    """Full UL slot batch: (S, total) samples of the S air slots -> every
+    UL channel's results on the UL slots.
 
-    Returns a dict: payload (S, U, TBS), tb_ok (S, U), noise_var, cfo,
-    soft (S, U*C, n_cb) HARQ state, ack_bits (S, U, 2), ack_metric (S, U),
-    csi_bits (S_csi, U, K), csi_ok (S_csi, U), srs_h (S_srs, U, m_sc),
-    srs_snr_db (S_srs, U), prach_metric / delay / detected (S_prach, 64).
+    Returns a dict: payload (S_ul, U, TBS), tb_ok (S_ul, U), noise_var,
+    cfo, soft (S_ul, U*C, n_cb) HARQ state, ack_bits (S_ul, U, 2),
+    ack_metric (S_ul, U), csi_bits (S_csi, U, K), csi_ok (S_csi, U), srs_h
+    (S_srs, U, m_sc), srs_snr_db (S_srs, U), prach_metric / delay /
+    detected (S_prach, 64).
 
     ``soft_flat``: take and return the HARQ state in the decoder's flat
-    (S*U*C, n_cb) layout, as a caller does that feeds it straight back.
-    ``new_data``: (S, U) mask, 1 = new transmission (its buffer is zeroed).
+    (S_ul*U*C, n_cb) layout, as a caller does that feeds it straight back.
+    ``new_data``: (S_ul, U) mask, 1 = new transmission (its buffer is
+    zeroed).
     """
     cell = fc.ul_cell()
     sp._check_siso(cell)
     dev = resolve_device(device)
     rx = sp._on(rx, dev)
-    rx_grid = ofdm.demodulate_slot(rx, cell.timing, scale=1.0)  # (S, nsymb, nsubc)
+    rx_grid = ofdm.demodulate_slot(_slot_take(rx, fc.ul_slots(s_total)),
+                                   cell.timing, scale=1.0)  # (S_ul, nsymb, nsubc)
     llr, nv, cfo = sp._ul_front(None, _rntis(fc, dev), cell, rx_grid=rx_grid)
     payload, tb_ok, soft, sweeps = sp._ul_back(llr, cell, 0, num_iters,
                                        sp._on(soft_in, dev),
@@ -773,9 +958,9 @@ def gnb_ul_slot_batch(rx, fc: FullCellConfig, s_total: int,
 
 def _dl_control_rows(dci: torch.Tensor, fc: FullCellConfig,
                      s_total: int) -> torch.Tensor:
-    """(S, nsymb, nsubc) port-0 control contribution: PDCCH on symbol 0
-    every slot, NZP-CSI-RS on its occasions (the SSB blocks are added onto
-    the SSB sub-batch by the caller)."""
+    """(S, nsymb, nsubc) port-0 control contribution: PDCCH on symbol 0 of
+    every DL and special slot, NZP-CSI-RS on its occasions (the SSB blocks
+    are added onto the SSB sub-batch by the caller)."""
     t = fc.timing
     extra = torch.zeros((s_total, t.nsymb, t.nof_subc), dtype=torch.complex64,
                         device=dci.device)
@@ -787,26 +972,31 @@ def _dl_control_rows(dci: torch.Tensor, fc: FullCellConfig,
 def gnb_dl_slot_batch_mimo(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
                            s_total: int, device: str | torch.device = "cuda"
                            ) -> torch.Tensor:
-    """Full MIMO DL slot batch -> (S, L, total) per-port samples; payloads
-    at the L-layer TBS of ``dl_cell_mimo`` / ``dl_cell_ssb_mimo``.  The
+    """Full MIMO DL slot batch -> (S, L, total) per-port samples of the S
+    air slots; payloads at the L-layer TBS of ``dl_cell_mimo`` /
+    ``dl_cell_ssb_mimo``, the rest as ``gnb_dl_slot_batch``.  The
     sub-batches' grids are merged and modulated once."""
     dev = resolve_device(device)
     dci, pbch = (sp._on(x, dev) for x in (dci, pbch))
     cell_n, cell_s = fc.dl_cell_mimo(), fc.dl_cell_ssb_mimo()
-    if fc.ssb_slots(s_total)[0] != 0:
+    norm_idx, ssb_idx = fc.norm_slots(s_total), fc.ssb_slots(s_total)
+    if ssb_idx[0] != 0:
         raise ValueError("the SSB occasions must start at slot 0")
-    k = fc.ssb_period
     rntis = _rntis(fc, dev)
     extra = _dl_control_rows(dci, fc, s_total)
     sc0 = fc.ssb_first_subcarrier
-    ex_s = extra[0::k].clone()
+    ex_s = _slot_take(extra, ssb_idx).clone()
     ex_s[:, 2:6, sc0:sc0 + 240] += ssb_blocks(pbch, fc, s_total)
     g_n = sp.dl_slot_batch_mimo(
-        pay_norm, rntis, cell_n, extra_rows=_slot_drop_period(extra, k),
+        pay_norm, rntis, cell_n, extra_rows=_slot_take(extra, norm_idx),
         return_grid=True, device=dev)
     g_s = sp.dl_slot_batch_mimo(
         pay_ssb, rntis, cell_s, extra_rows=ex_s, return_grid=True, device=dev)
-    grid = _slot_merge_period(g_s, g_n, k, s_total)
+    sp_idx = fc.special_slots(s_total)
+    g_sp = g_n.new_zeros((len(sp_idx), *g_n.shape[1:]))
+    g_sp[:, 0] = _slot_take(extra, sp_idx)
+    grid = _slot_merge([(g_s, ssb_idx), (g_n, norm_idx), (g_sp, sp_idx)],
+                       g_n.shape[1:], s_total, g_n)
     t = fc.timing
     return _tx_amplitude(ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft), fc)
 
@@ -816,16 +1006,17 @@ def gnb_ul_slot_batch_mimo(rx, fc: FullCellConfig, s_total: int,
                            num_iters: int = decoder.DEFAULT_ITERS,
                            soft_flat: bool = False, early_stop: bool = True,
                            device: str | torch.device = "cuda") -> dict:
-    """Full MIMO UL slot batch: (S, P, total) antenna samples -> the result
-    dict of ``gnb_ul_slot_batch`` (payload at the L-layer TBS).  All
-    antennas are demodulated once; PUSCH takes the LxP front, PUCCH F1/F2,
-    SRS and PRACH antenna 0."""
+    """Full MIMO UL slot batch: (S, P, total) antenna samples of the S air
+    slots -> the result dict of ``gnb_ul_slot_batch`` (payload at the
+    L-layer TBS).  The UL slots of all antennas are demodulated once; PUSCH
+    takes the LxP front, PUCCH F1/F2, SRS and PRACH antenna 0."""
     cell = fc.ul_cell()
     dev = resolve_device(device)
     rx = sp._on(rx, dev)
     t = cell.timing
-    s, p_rx = rx.shape[:2]
-    rx_grid = ofdm.demodulate_slot(rx.reshape(s * p_rx, -1), t, scale=1.0)
+    rx_ul = _slot_take(rx, fc.ul_slots(s_total))
+    s, p_rx = rx_ul.shape[:2]
+    rx_grid = ofdm.demodulate_slot(rx_ul.reshape(s * p_rx, -1), t, scale=1.0)
     rx_grid = rx_grid.reshape(s, p_rx, t.nsymb, t.nof_subc)
     llr, nv, cfo = sp._ul_front_mimo(None, _rntis(fc, dev), cell,
                                      rx_grid=rx_grid)
