@@ -213,6 +213,15 @@ Between phases 1 and 2:
                and the byte bound (int8 in, int8 or complex64 out, at
                HBM_BYTES_PER_S).
 
+  1b. pusch_front — the PUSCH front's kernel (ops/pusch_front.py:
+               pusch_demap) against the plain chain it replaces, run on the
+               card (pusch_front.demap_plain on CUDA tensors), on the inputs
+               the UL front hands it at the benchmark cells' UL shapes (SISO
+               S = 1024, 2x2 S = 512; 25 dB data-plane waveforms): equal
+               int8 LLRs; its ms per call, the plain chain's, and the byte
+               bound (REs, estimate or weights, derotation and inits in, one
+               int8 per LLR out, at HBM_BYTES_PER_S).
+
 Between phases 5 and 6 (they reuse the slice phase's tensors):
   5a. multi_cell — bench.py --cells=4 --sbatch=64 (the bench module's inputs
                and chained step, and its JSON line): 4 carriers x 64 slots of the 20 MHz
@@ -429,6 +438,54 @@ def phase_pdsch_code(sp, fcm, dev) -> dict:
                        / HBM_BYTES_PER_S * 1e3)
             emit("pdsch_code", path=f"{tag}_{part}", **row)
             rows[f"{tag}_{part}"] = row
+    return rows
+
+
+def phase_pusch_front(sp, fcm, dev) -> dict:
+    """Phase 1b: pusch_demap against the plain chain on the card at the
+    cells' UL shapes; {path: its row}."""
+    import torch
+    from srsran_edgeric_5g_tpu_torch.ops import pusch_front
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    rows = {}
+    for tag, fc, s in (("siso", fcm.FullCellConfig(), 1024),
+                       ("mimo2x2", fcm.FullCellConfig(n_layers=2), 512)):
+        cell = fc.ul_cell()
+        rntis = fcm._rntis(fc, dev)
+        pay = torch.randint(0, 2, (s, cell.nof_ue, cell.derived_tbs()), generator=gen,
+                            device=dev, dtype=torch.int8)
+        t = cell.timing
+        if fc.n_layers > 1:
+            td = sp.dl_slot_batch_mimo(pay, rntis, cell, device=dev)
+            grid = sp.ofdm.demodulate_slot((td + awgn(td, SNR_DB, gen)).reshape(
+                s * fc.n_layers, -1), t, scale=1.0).reshape(s, fc.n_layers, t.nsymb, -1)
+            front = lambda: sp._ul_front_mimo(None, rntis, cell, rx_grid=grid)
+        else:
+            td = sp.dl_slot_batch(pay, rntis, cell, device=dev)
+            grid = sp.ofdm.demodulate_slot(td + awgn(td, SNR_DB, gen), t, scale=1.0)
+            front = lambda: sp._ul_front(None, rntis, cell, rx_grid=grid)
+        calls, demap = [], pusch_front.demap
+        pusch_front.demap = lambda *a: calls.append(a) or demap(*a)
+        try:
+            front()
+        finally:
+            pusch_front.demap = demap
+        args = calls[0]
+        kernel = lambda: pusch_front.demap(*args)
+        plain = lambda: pusch_front.demap_plain(*args)
+        out = kernel()
+        check(torch.equal(out, plain()),
+              f"pusch_demap {tag}: LLRs differ from the plain chain")
+        n_ports = grid.shape[1] if grid.ndim == 4 else 1
+        n_in = (out.shape[0] * len(cell.data_symbols) * cell.ue_width_sc * n_ports * 8
+                + sum(x.numel() * x.element_size() for x in args[4:8] if x is not None))
+        row = dict(rows=out.shape[0], g=out.shape[1], qm=cell.qm, layers=fc.n_layers,
+                   ports=n_ports, equal=True, bytes_in=n_in, bytes_out=out.numel(),
+                   ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 5),
+                   front_ms=cuda_ms(front, 10),
+                   bound_ms=(n_in + out.numel()) / HBM_BYTES_PER_S * 1e3)
+        emit("pusch_front", path=tag, **row)
+        rows[tag] = row
     return rows
 
 
@@ -3061,6 +3118,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     pdsch = phase_pdsch_code(sp, fcm, dev)
+    pusch = phase_pusch_front(sp, fcm, dev)
     ctx = phase_slice(sp, cuda_build, dev, S_BATCH)
     check(ctx["launches"].get(decoder_cuda.KERNEL, 0) > 0,
           f"main path launched no {decoder_cuda.KERNEL} kernel")
@@ -3177,6 +3235,15 @@ def main() -> int:
             "bound_ms": siso[f"{key}_bound_ms"], "bound_by": "bytes", "library_ms": None,
             "per_path": {p: {k: v for k, v in r.items() if k.startswith(key)}
                          for p, r in pdsch.items()}})
+    # pusch_demap replaces no Pallas kernel either (the JAX package runs the
+    # PUSCH front with XLA ops); its main path is the SISO step's front.
+    kernels.append({
+        "name": "pusch_demap", "route": "cuda",
+        "source": "srsran_edgeric_5g_tpu_torch/csrc/pusch_front.cu", "replaces": None,
+        "launches": fcx["launches"].get("pusch_demap", 0), "max_abs_err": 0.0,
+        "ms": pusch["siso"]["ms"], "plain_ms": pusch["siso"]["plain_ms"],
+        "bound_ms": pusch["siso"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "per_path": pusch})
     check(all(math.isfinite(k["ms"]) and k["ms"] > 0 for k in kernels), "kernel times")
     emit("total", seconds=time.perf_counter() - t_start)
     print(card, flush=True)

@@ -28,7 +28,7 @@ from .utils.tracing import builds
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-KERNELS = ("ldpc_layered", "pdsch_code")
+KERNELS = ("ldpc_layered", "pdsch_code", "pusch_front")
 
 # --fmad=false: the f32 decoder mode must round every multiply and add
 # separately to stay bit-equal to its plain PyTorch version.

@@ -17,7 +17,8 @@ noise whitening W = diag(1/nvar_p) and unbias each layer to unity gain
 the Hermitian 2x2 formula, and for L = 4 the blockwise Schur complement;
 only other L go through ``torch.linalg.inv``.  The slot receiver's path is
 ``mmse_equalize_timeinv_grid``: the channel estimate is constant over the
-data symbols, so the weights are computed once per subcarrier.
+data symbols, so the weights are computed once per subcarrier
+(``mmse_weights_grid``) and applied to every data RE (``mmse_apply_grid``).
 """
 
 from __future__ import annotations
@@ -240,6 +241,50 @@ def mmse_equalize_timeinv(y: torch.Tensor, h: torch.Tensor,
             torch.stack(nvs, dim=1).to(torch.float32))
 
 
+def mmse_weights_grid(h: torch.Tensor, noise_var: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-subcarrier half of ``mmse_equalize_timeinv_grid``: the
+    combining weights of a time-invariant estimate on the receive grid's
+    layout.
+
+    Args:
+      h: (S, P, L, U, w) channel estimate (constant over the data symbols).
+      noise_var: broadcastable to (S, P, U, w).
+
+    Returns (weights (S, U, w, L, P) complex64 with the unbias folded in,
+    nv_out (S, U, w, L) float32); ``mmse_apply_grid`` applies the weights
+    to every data RE (``ops.pusch_front`` on the card).
+    """
+    nof_layers, n_ports = h.shape[2], h.shape[1]
+    nv = torch.as_tensor(noise_var, device=h.device).to(torch.float32).expand(
+        h.shape[:2] + h.shape[3:])                              # (S, P, U, w)
+    hw = h * (1.0 / torch.clamp(nv, min=1e-30))[:, :, None]
+    ht = h.permute(1, 2, 0, 3, 4)       # (P, L, S, U, w)
+    hwt = hw.permute(1, 2, 0, 3, 4)
+    binv, g = _binv_scalars(ht, hwt, nof_layers)             # entries (S, U, w)
+    wts = torch.stack(
+        [torch.stack([_weight(binv, g, hwt[p], l) for p in range(n_ports)], dim=-1)
+         for l in range(nof_layers)], dim=-2)
+    nvs = [torch.clamp(binv[(l, l)].real, min=1e-30) / g[l] for l in range(nof_layers)]
+    return wts.to(torch.complex64), torch.stack(nvs, dim=-1).to(torch.float32)
+
+
+def mmse_apply_grid(y: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The per-RE half of ``mmse_equalize_timeinv_grid``: (S, P, n, U, w)
+    data REs and (S, U, w, L, P) weights -> x_hat (S, n, U, w, L) complex64,
+    x_l = sum_p W_lp y_p summed in port order."""
+    xs = []
+    for l in range(weights.shape[-2]):
+        acc = None
+        for p in range(weights.shape[-1]):
+            # Contiguous, as the weights are made: PyTorch's CPU kernels
+            # round a complex product on a strided operand otherwise.
+            term = weights[..., l, p].contiguous()[:, None] * y[:, p]  # (S, n, U, w)
+            acc = term if acc is None else acc + term
+        xs.append(acc)
+    return torch.stack(xs, dim=-1).to(torch.complex64)
+
+
 def mmse_equalize_timeinv_grid(y: torch.Tensor, h: torch.Tensor,
                                noise_var: torch.Tensor
                                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -256,23 +301,8 @@ def mmse_equalize_timeinv_grid(y: torch.Tensor, h: torch.Tensor,
     expanding the last axis by Qm is the TS 38.211 layer interleave
     d(L*i + l).
     """
-    nof_layers = h.shape[2]
-    nv = torch.as_tensor(noise_var, device=h.device).to(torch.float32).expand(
-        h.shape[:2] + h.shape[3:])                              # (S, P, U, w)
-    hw = h * (1.0 / torch.clamp(nv, min=1e-30))[:, :, None]
-    ht = h.permute(1, 2, 0, 3, 4)       # (P, L, S, U, w)
-    hwt = hw.permute(1, 2, 0, 3, 4)
-    binv, g = _binv_scalars(ht, hwt, nof_layers)             # entries (S, U, w)
-    xs, nvs = [], []
-    for l in range(nof_layers):
-        acc = None
-        for p in range(h.shape[1]):
-            term = _weight(binv, g, hwt[p], l)[:, None] * y[:, p]  # (S, n, U, w)
-            acc = term if acc is None else acc + term
-        xs.append(acc)
-        nvs.append(torch.clamp(binv[(l, l)].real, min=1e-30) / g[l])
-    return (torch.stack(xs, dim=-1).to(torch.complex64),
-            torch.stack(nvs, dim=-1).to(torch.float32))
+    wts, nv_out = mmse_weights_grid(h, noise_var)
+    return mmse_apply_grid(y, wts), nv_out
 
 
 def _weight(binv: dict, g: list, hw_p: torch.Tensor, l: int) -> torch.Tensor:

@@ -156,10 +156,16 @@ def _encode_plan(seg: segmenter.SegmentPlan, rm: rate_match.RateMatchPlan,
 
 
 @cached_build
-def _modulate_tables(length: int, qm: int, device: torch.device):
+def gold_on(length: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``gold_words(length)`` on ``device`` as int32 tensors (x1, basis)."""
     x1, basis = gold_words(length)
     return (torch.as_tensor(x1.view(np.int32), device=device),
-            torch.as_tensor(basis.view(np.int32), device=device),
+            torch.as_tensor(basis.view(np.int32), device=device))
+
+
+@cached_build
+def _modulate_tables(length: int, qm: int, device: torch.device):
+    return (*gold_on(length, device),
             torch.as_tensor(symbol_table(qm), device=device))
 
 

@@ -9,7 +9,8 @@ gather/scatter is a slice + reshape.
 DL: segment -> LDPC encode -> rate match -> scramble -> modulate (two CUDA
 kernels on the card, ``ops.pdsch_code``) -> place subgrids -> OFDM
 modulate.  UL: OFDM demod -> DM-RS estimate -> MMSE
-equalize -> demap -> wire quantise -> descramble -> rate dematch (+ HARQ
+equalize -> demap -> wire quantise -> descramble (one CUDA kernel on the
+card, ``ops.pusch_front``, into int8 wire LLRs) -> rate dematch (+ HARQ
 combine into the int8 soft carry) -> LDPC decode (the CUDA kernel on the
 card) -> TB CRC.  ``delay_spread_us > 0`` selects the TA + smoothing
 channel estimator.
@@ -56,7 +57,7 @@ import numpy as np
 import torch
 
 from ..device import host_constant, resolve_device
-from ..ops import channel_est, equalizer, modulation, ofdm, pdsch_code, sequences
+from ..ops import channel_est, equalizer, modulation, ofdm, pdsch_code, pusch_front
 from ..ops import dmrs as dmrs_mod
 from ..ops.ldpc import decoder, rate_match, segmenter
 from ..ran.numerology import N_SC_PER_PRB, SlotTiming, slot_timing
@@ -393,9 +394,11 @@ def _ul_front(rx_samples, rntis: torch.Tensor | None, cell: CellConfig,
               row_axes=ROWS):
     """OFDM demod -> chest -> MMSE -> demap -> wire quantise -> descramble:
     (S, total) samples (any (..., total) batch of S slots) -> ((S, U, G)
-    LLRs, (S, U) noise_var, (S, U) cfo).  ``rx_grid`` (S, nsymb, nsubc)
-    skips the OFDM demodulation when the caller already demodulated the
-    slots (the full cell shares one grid between PUSCH, PUCCH and SRS).
+    int8 wire LLRs, (S, U) noise_var, (S, U) cfo).  The chest runs here;
+    the per-RE chain after it is ``pusch_front.demap``.  ``rx_grid`` (S,
+    nsymb, nsubc) skips the OFDM demodulation when the caller already
+    demodulated the slots (the full cell shares one grid between PUSCH,
+    PUCCH and SRS).
     ``ci`` (S*U,) replaces the per-row descrambling inits derived from
     ``rntis`` (multi-cell flattens the carriers into the S dim).
 
@@ -427,7 +430,6 @@ def _ul_front(rx_samples, rntis: torch.Tensor | None, cell: CellConfig,
     times = np.asarray([t.cp.data_starts[l] for l in cell.dmrs_symbols]) / t.srate
     npil_ue = len(pat.subcarriers)
     ndmrs = len(cell.dmrs_symbols)
-    ndata = len(cell.data_symbols)
     if not (span_pat.subcarriers == np.arange(0, u * w, 2)).all():
         raise ValueError("pipeline assumes type-1 port-0 DM-RS (even subcarriers)")
 
@@ -440,8 +442,6 @@ def _ul_front(rx_samples, rntis: torch.Tensor | None, cell: CellConfig,
     p0 = 6 * cell.first_prb
     ref_p = pilots[:, p0:p0 + len(span_pat.subcarriers)]
     ref_p = ref_p.reshape(ndmrs, u, npil_ue).permute(1, 0, 2).repeat(s, 1, 1)
-    y = band[:, host_constant(cell.data_symbols, dev)]
-    y = y.reshape(s, ndata, u, w).permute(0, 2, 1, 3).reshape(s * u, ndata, w)
 
     times_opt = times if ndmrs > 1 else None
     if cell.delay_spread_us > 0:
@@ -461,25 +461,19 @@ def _ul_front(rx_samples, rntis: torch.Tensor | None, cell: CellConfig,
     # The estimator derotated the pilots by their symbol times, so each data
     # symbol still carries e^{j2pi*cfo*t_l}: remove it (float32 phase, as
     # the reference).
+    rot = None
     if ndmrs > 1:
         t_data = host_constant(
             np.asarray([t.cp.data_starts[l] for l in cell.data_symbols],
                        np.float32) / np.float32(t.srate), dev)
         ph = float(np.float32(-2.0 * np.pi)) * cfo[:, None] * t_data
-        y = y * torch.complex(torch.cos(ph), torch.sin(ph))[:, :, None]
-
-    hh = h[:, None, :].expand(y.shape)
-    x_hat, nv_out = equalizer.equalize_mmse_1xn(y[None], hh[None],
-                                                nv[None, :, None, None])
-    llr = modulation.demodulate_soft(x_hat.reshape(s * u, ndata * w),
-                                     nv_out.reshape(s * u, ndata * w),
-                                     cell.modulation, quantize=False)
-    # The reference's int8 wire domain (in float): pairs with the decoder's
-    # 'wire_auto' schedule.
-    llr = modulation.wire_quantize(llr, cell.modulation)
+        rot = torch.complex(torch.cos(ph), torch.sin(ph))     # (S*U, ndata)
     if ci is None:
         ci = _scrambling_inits(rntis, cell, n_slots)
-    llr = sequences.scramble_llrs(llr, ci[s0 * u:(s0 + s) * u])
+    # The reference's int8 wire domain: pairs with the decoder's 'wire_auto'
+    # schedule.
+    llr = pusch_front.demap(rx_grid, cell.data_symbols, band0, u, h, nv, rot,
+                            ci[s0 * u:(s0 + s) * u], cell.modulation)
     llr, nv, cfo = llr[own], nv[own], cfo[own]
     if mesh is None:
         return llr.reshape(s, u, llr.shape[-1]), nv.reshape(s, u), cfo.reshape(s, u)
@@ -724,8 +718,8 @@ def ul_slot_batch_mimo(rx_samples, rntis, cell: CellConfig, rv: int = 0,
 def _ul_front_mimo(rx_samples, rntis: torch.Tensor, cell: CellConfig,
                    rx_grid=None, mesh=None, row_axes=ROWS):
     """Multi-antenna UL front: (S, P, total) samples, or a demodulated
-    (S, P, nsymb, nsubc) ``rx_grid`` -> ((S*U, L*G) LLRs, (S, U) noise_var,
-    (S, U) cfo); on a mesh the rank's block of the S*U rows (over
+    (S, P, nsymb, nsubc) ``rx_grid`` -> ((S*U, L*G) int8 wire LLRs, (S, U)
+    noise_var, (S, U) cfo); on a mesh the rank's block of the S*U rows (over
     ``row_axes``, from the slots that hold it), as DTensors (S*U, L*G),
     (S*U,), (S*U,).
 
@@ -733,7 +727,8 @@ def _ul_front_mimo(rx_samples, rntis: torch.Tensor, cell: CellConfig,
     pilot pairs, into half-rate virtual pilots for ``estimate_port``; the
     CFO is the angle of the correlations summed over streams and antennas;
     the LxP MMSE weights are computed once per subcarrier and applied to
-    every data symbol; the layer axis stays minor, so expanding it by Qm is
+    every data symbol by ``pusch_front.demap``, which demaps, quantises and
+    descrambles them; the layer axis stays minor, so expanding it by Qm is
     the layer interleave."""
     n_l = cell.n_layers
     t = cell.timing
@@ -790,26 +785,24 @@ def _ul_front_mimo(rx_samples, rntis: torch.Tensor, cell: CellConfig,
     cfo = (torch.angle(torch.sum(sum(cfos), dim=1))          # (S, U)
            / float(np.float32(2.0 * np.pi)) / dt).to(torch.float32)
 
-    y = band[:, :, host_constant(cell.data_symbols, dev)].reshape(s, p_rx, ndata, u, w)
     # The pilots were derotated by their symbol times; each data symbol
     # still carries e^{j2pi*cfo*t_l} (float32 phase, as the reference).
+    rot = None
     if ndmrs > 1:
         t_data = host_constant(
             np.asarray([t.cp.data_starts[l] for l in cell.data_symbols],
                        np.float32) / np.float32(t.srate), dev)
         ph = float(np.float32(-2.0 * np.pi)) * cfo[:, None, :] \
             * t_data[None, :, None]                            # (S, n, U)
-        y = y * torch.complex(torch.cos(ph), torch.sin(ph))[:, None, :, :, None]
+        rot = torch.complex(torch.cos(ph), torch.sin(ph)).transpose(1, 2).reshape(
+            s * u, ndata)
     # Noise floor: a zero estimate (noiseless loopback) would blow the
     # whitening up into all-zero equaliser outputs, whose all-zero codeword
     # passes parity.
     nv_p = torch.clamp(nv[..., None], min=1e-9)               # (S, P, U, 1)
-    x_hat, nv_out = equalizer.mmse_equalize_timeinv_grid(y, h, nv_p)
-    x5 = x_hat.permute(0, 2, 1, 3, 4)                         # (S, U, n, w, L)
-    nv5 = nv_out[:, :, None].expand(x5.shape)                 # (S, U, n, w, L)
-    llr = modulation.demodulate_soft(x5, nv5, cell.modulation, quantize=False)
-    llr = modulation.wire_quantize(llr, cell.modulation).flatten(2).flatten(0, 1)
-    llr = sequences.scramble_llrs(llr, _scrambling_inits(rntis, cell, s))
+    wts, nv_out = equalizer.mmse_weights_grid(h, nv_p)
+    llr = pusch_front.demap(rx_grid, cell.data_symbols, band0, u, wts, nv_out, rot,
+                            _scrambling_inits(rntis, cell, s), cell.modulation)
     nv = torch.mean(nv, dim=1)
     if mesh is None:
         return llr, nv, cfo

@@ -37,7 +37,7 @@ def _awgn(x, snr_db, rng):
 
 def _same_front(cpu, card):
     (llr_c, nv_c, cfo_c), (llr_g, nv_g, cfo_g) = cpu, [x.cpu() for x in card]
-    diff = (llr_c - llr_g).abs()
+    diff = (llr_c.to(torch.int16) - llr_g.to(torch.int16)).abs()
     assert diff.max() <= 1 and (diff > 0).float().mean() <= 1e-3
     np.testing.assert_allclose(nv_g.numpy(), nv_c.numpy(), rtol=1e-4)
     np.testing.assert_allclose(cfo_g.numpy(), cfo_c.numpy(), atol=1e-2)
