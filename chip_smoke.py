@@ -39,7 +39,9 @@ Phases (any failure exits non-zero):
                valid and exact, PRACH preamble 7 alone on every occasion);
                K1's launches are read around this run.  Then bench.py's 30
                chained steps (ms per slot, x real time, samples/s, and
-               bench.py's JSON line), a per-channel breakdown, and
+               bench.py's JSON line), each a replay of the DL and the UL
+               call's CUDA graph (utils.tracing.graph_calls, printed for
+               the warm and the timed steps), a per-channel breakdown, and
                the device's busy time and idle share over chained steps
                (torch.profiler's device records).
   7. kernel_int8 — K2 (decode_int8) against its plain version on the card:
@@ -808,14 +810,28 @@ def profile_summary(prof, n_prof: int, wall_ms: float) -> dict:
                 top_ms_per_step={k: v / n_prof / 1e3 for k, v in top})
 
 
+def graph_calls_between(before: dict, after: dict) -> dict:
+    """{entry point: {how: calls}} made between two snapshots of
+    ``utils.tracing.graph_calls``."""
+    out = {}
+    for entry, counts in after.items():
+        made = {k: n - before.get(entry, {}).get(k, 0) for k, n in counts.items()}
+        made = {k: n for k, n in made.items() if n}
+        if made:
+            out[entry] = made
+    return out
+
+
 def phase_full_cell(fcm, sp, pb, cuda_build, dec, dev, argv, tag):
     """bench.py's mode ``argv`` of the full gNB slot (bench_full_cell, or
     bench_full_cell_mimo) on the port, through the bench module's inputs
     and chained step: bench.py's asserts, K1's launches, the chained timed
     steps (and bench.py's line from them), the per-channel breakdown and
     the device profile.  Phases ``<tag>``, ``<tag>_e2e``,
-    ``<tag>_breakdown_ms_per_step`` and ``<tag>_device_profile``."""
+    ``<tag>_breakdown_ms_per_step``, ``<tag>_graph_calls`` and
+    ``<tag>_device_profile``."""
     import torch
+    from srsran_edgeric_5g_tpu_torch.utils import tracing
     mode = pb.parse(argv)
     n_l = mode.args[1] if mode.fn is pb.bench_full_cell_mimo else 1
     fc, snr_db, steps = fcm.FullCellConfig(n_layers=n_l, **mode.fc_kw), mode.args[-1], mode.iters
@@ -831,6 +847,7 @@ def phase_full_cell(fcm, sp, pb, cuda_build, dec, dev, argv, tag):
         x[k] for k in ("gnb_dl", "gnb_ul", "ul", "noise", "ones", "soft0"))
     torch.cuda.synchronize()
     cuda_build.reset_launches()
+    start_calls = tracing.graph_calls.snapshot()
     t0 = time.perf_counter()
     res, td = chain(), chain.td
     torch.cuda.synchronize()
@@ -861,10 +878,19 @@ def phase_full_cell(fcm, sp, pb, cuda_build, dec, dev, argv, tag):
 
     for _ in range(2):
         chain()
+    warm_calls = tracing.graph_calls.snapshot()
     torch.cuda.reset_peak_memory_stats()
     slot_ms = chain.timed(steps) * 1e3
     dt = slot_ms * 1e-3 * steps * s
     check(bool(chain.res["tb_ok"].all()), f"{tag} timed steps: CRC")
+    # The CUDA graph per call: the 3 warm steps run each key eager once and
+    # capture it; every timed step replays both calls.
+    timed_calls = graph_calls_between(warm_calls, tracing.graph_calls.snapshot())
+    check(timed_calls == {gnb_dl.__name__: {"replay": steps},
+                          gnb_ul.__name__: {"replay": steps}},
+          f"{tag}: the timed steps did not all replay: {timed_calls}")
+    emit(f"{tag}_graph_calls", warm=graph_calls_between(start_calls, warm_calls),
+         timed=timed_calls)
     emit(f"{tag}_e2e", steps=steps, slots_per_step=s, seconds=dt,
          ms_per_slot=slot_ms, x_real_time=(1.0 / (1 << fc.mu)) / slot_ms,
          samples_per_s=t.cp.total / (slot_ms * 1e-3), srate=t.srate,

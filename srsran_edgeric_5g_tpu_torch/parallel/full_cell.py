@@ -42,6 +42,11 @@ inside; ``phy.ul`` around the UL call with ``phy.ul.ofdm``, ``.front``,
 and ``.control`` (``.pucch_f1``, ``.pucch_f2``, ``.srs``, ``.prach``).
 Under a torch profiler they are its ranges; with neither the profiler nor
 the tracer on they cost a flag check.
+
+On the card each of the four gNB entry points runs its body through
+``step_graph.STEP_GRAPHS``: eager at a configuration's first call, then
+captured once as a CUDA graph and replayed, inside its ``phy.dl`` /
+``phy.ul`` span; eager always under a profiler, on a mesh or on the CPU.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from ..ops.ldpc import decoder
 from ..ops.polar import encoder as penc, rate_match as prm
 from ..ran.numerology import N_SC_PER_PRB
 from . import slot_pipeline as sp
+from .step_graph import STEP_GRAPHS
 from ..utils.tracing import cached_build, l1_tracer
 
 SQRT2 = float(np.sqrt(2.0))
@@ -415,46 +421,55 @@ def gnb_dl_slot_batch(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
     the control channels, grids and samples are replicated.
     """
     with l1_tracer.span("phy.dl"):
-        dev = resolve_device(device)
-        pay_norm, pay_ssb = sp._on(pay_norm, dev), sp._on(pay_ssb, dev)
-        dci, pbch = (sp.unshard(sp._on(x, dev)) for x in (dci, pbch))
-        cell_n, cell_s = fc.dl_cell(), fc.dl_cell_ssb()
-        t = cell_n.timing
-        norm_idx, ssb_idx = fc.norm_slots(s_total), fc.ssb_slots(s_total)
-        if ssb_idx[0] != 0:
-            raise ValueError("the SSB occasions must start at slot 0")
-        rntis = _rntis(fc, dev)
-        u, k = fc.nof_ue, fc.ssb_period
+        return STEP_GRAPHS(
+            "gnb_dl_slot_batch",
+            lambda *x: _dl_slot_batch(*x, fc, s_total, device, mesh),
+            (pay_norm, pay_ssb, dci, pbch), device, mesh, fc=fc, s_total=s_total)
 
-        with l1_tracer.span("phy.dl.code"):
-            syms_n = sp.unshard(sp._dl_code(pay_norm, rntis, cell_n, mesh=mesh)
-                                ).reshape(len(norm_idx), u, -1)
-            syms_s = sp.unshard(sp._dl_code(pay_ssb, rntis, cell_s, mesh=mesh)
-                                ).reshape(len(ssb_idx), u, -1)
-        with l1_tracer.span("phy.dl.control"):
-            prows = pdcch_rows(dci, fc, s_total)                # (S, nsubc)
-            blocks = ssb_blocks(pbch, fc, s_total)              # (S_ssb, 4, 240)
-            crows = (_csi_rs_rows(fc, s_total, dev) if fc.csi_rs_period > 0
-                     else None)
 
-        with l1_tracer.span("phy.dl.grid"):
-            rows_n = {0: _slot_drop_period(prows, k)}
-            rows_s = {0: prows[0::k]}
-            if crows is not None:
-                rows_n[fc.csi_rs_symbol] = _slot_drop_period(crows, k)
-                rows_s[fc.csi_rs_symbol] = crows[0::k]
-            sc0 = fc.ssb_first_subcarrier
-            for j in range(4):
-                row = torch.zeros((len(ssb_idx), t.nof_subc),
-                                  dtype=torch.complex64, device=dev)
-                row[:, sc0:sc0 + 240] = blocks[:, j]
-                rows_s[2 + j] = rows_s[2 + j] + row if 2 + j in rows_s else row
-            g_n = sp._dl_grid(syms_n, cell_n, dmrs_scale=1.0, add_rows=rows_n)
-            g_s = sp._dl_grid(syms_s, cell_s, dmrs_scale=1.0, add_rows=rows_s)
-            grid = _slot_merge_period(g_s, g_n, k, s_total)
-        with l1_tracer.span("phy.dl.ofdm"):
-            td = _tx_amplitude(ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft), fc)
-        return sp.shard(td, mesh, ())
+def _dl_slot_batch(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig, s_total: int,
+                   device, mesh) -> torch.Tensor:
+    """``gnb_dl_slot_batch``'s body, eager."""
+    dev = resolve_device(device)
+    pay_norm, pay_ssb = sp._on(pay_norm, dev), sp._on(pay_ssb, dev)
+    dci, pbch = (sp.unshard(sp._on(x, dev)) for x in (dci, pbch))
+    cell_n, cell_s = fc.dl_cell(), fc.dl_cell_ssb()
+    t = cell_n.timing
+    norm_idx, ssb_idx = fc.norm_slots(s_total), fc.ssb_slots(s_total)
+    if ssb_idx[0] != 0:
+        raise ValueError("the SSB occasions must start at slot 0")
+    rntis = _rntis(fc, dev)
+    u, k = fc.nof_ue, fc.ssb_period
+
+    with l1_tracer.span("phy.dl.code"):
+        syms_n = sp.unshard(sp._dl_code(pay_norm, rntis, cell_n, mesh=mesh)
+                            ).reshape(len(norm_idx), u, -1)
+        syms_s = sp.unshard(sp._dl_code(pay_ssb, rntis, cell_s, mesh=mesh)
+                            ).reshape(len(ssb_idx), u, -1)
+    with l1_tracer.span("phy.dl.control"):
+        prows = pdcch_rows(dci, fc, s_total)                # (S, nsubc)
+        blocks = ssb_blocks(pbch, fc, s_total)              # (S_ssb, 4, 240)
+        crows = (_csi_rs_rows(fc, s_total, dev) if fc.csi_rs_period > 0
+                 else None)
+
+    with l1_tracer.span("phy.dl.grid"):
+        rows_n = {0: _slot_drop_period(prows, k)}
+        rows_s = {0: prows[0::k]}
+        if crows is not None:
+            rows_n[fc.csi_rs_symbol] = _slot_drop_period(crows, k)
+            rows_s[fc.csi_rs_symbol] = crows[0::k]
+        sc0 = fc.ssb_first_subcarrier
+        for j in range(4):
+            row = torch.zeros((len(ssb_idx), t.nof_subc),
+                              dtype=torch.complex64, device=dev)
+            row[:, sc0:sc0 + 240] = blocks[:, j]
+            rows_s[2 + j] = rows_s[2 + j] + row if 2 + j in rows_s else row
+        g_n = sp._dl_grid(syms_n, cell_n, dmrs_scale=1.0, add_rows=rows_n)
+        g_s = sp._dl_grid(syms_s, cell_s, dmrs_scale=1.0, add_rows=rows_s)
+        grid = _slot_merge_period(g_s, g_n, k, s_total)
+    with l1_tracer.span("phy.dl.ofdm"):
+        td = _tx_amplitude(ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft), fc)
+    return sp.shard(td, mesh, ())
 
 
 def _tx_amplitude(td: torch.Tensor, fc: FullCellConfig) -> torch.Tensor:
@@ -795,21 +810,33 @@ def gnb_ul_slot_batch(rx, fc: FullCellConfig, s_total: int,
     previous call.
     """
     with l1_tracer.span("phy.ul"):
-        cell = fc.ul_cell()
-        sp._check_siso(cell)
-        dev = resolve_device(device)
-        rx = sp.unshard(sp._on(rx, dev))
-        with l1_tracer.span("phy.ul.ofdm"):
-            rx_grid = ofdm.demodulate_slot(rx, cell.timing, scale=1.0)  # (S, nsymb, nsubc)
-        with l1_tracer.span("phy.ul.front"):
-            llr, nv, cfo = sp._ul_front(None, _rntis(fc, dev), cell,
-                                        rx_grid=rx_grid, mesh=mesh)
-        payload, tb_ok, soft = sp._ul_back(llr, cell, 0, num_iters,
-                                           sp._on(soft_in, dev),
-                                           sp._on(new_data, dev),
-                                           early_stop=early_stop, mesh=mesh)
-        return _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid, rx, fc,
-                           s_total, soft_flat, mesh)
+        return STEP_GRAPHS(
+            "gnb_ul_slot_batch",
+            lambda *x: _ul_slot_batch(*x, fc, s_total, num_iters, soft_flat, early_stop,
+                                      device, mesh),
+            (rx, soft_in, new_data), device, mesh, fc=fc, s_total=s_total,
+            num_iters=num_iters, soft_flat=soft_flat, early_stop=early_stop)
+
+
+def _ul_slot_batch(rx, soft_in, new_data, fc: FullCellConfig, s_total: int,
+                   num_iters: int, soft_flat: bool, early_stop: bool, device,
+                   mesh) -> dict:
+    """``gnb_ul_slot_batch``'s body, eager."""
+    cell = fc.ul_cell()
+    sp._check_siso(cell)
+    dev = resolve_device(device)
+    rx = sp.unshard(sp._on(rx, dev))
+    with l1_tracer.span("phy.ul.ofdm"):
+        rx_grid = ofdm.demodulate_slot(rx, cell.timing, scale=1.0)  # (S, nsymb, nsubc)
+    with l1_tracer.span("phy.ul.front"):
+        llr, nv, cfo = sp._ul_front(None, _rntis(fc, dev), cell,
+                                    rx_grid=rx_grid, mesh=mesh)
+    payload, tb_ok, soft = sp._ul_back(llr, cell, 0, num_iters,
+                                       sp._on(soft_in, dev),
+                                       sp._on(new_data, dev),
+                                       early_stop=early_stop, mesh=mesh)
+    return _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid, rx, fc,
+                       s_total, soft_flat, mesh)
 
 
 # ============================================================ MIMO variants
@@ -835,34 +862,43 @@ def gnb_dl_slot_batch_mimo(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig,
     sub-batches' grids are merged and modulated once.  On a mesh as
     ``gnb_dl_slot_batch``."""
     with l1_tracer.span("phy.dl"):
-        dev = resolve_device(device)
-        dci, pbch = (sp.unshard(sp._on(x, dev)) for x in (dci, pbch))
-        cell_n, cell_s = fc.dl_cell_mimo(), fc.dl_cell_ssb_mimo()
-        if fc.ssb_slots(s_total)[0] != 0:
-            raise ValueError("the SSB occasions must start at slot 0")
-        k = fc.ssb_period
-        rntis = _rntis(fc, dev)
-        with l1_tracer.span("phy.dl.control"):
-            extra = _dl_control_rows(dci, fc, s_total)
-            blocks = ssb_blocks(pbch, fc, s_total)
-        with l1_tracer.span("phy.dl.grid"):
-            sc0 = fc.ssb_first_subcarrier
-            ex_s = extra[0::k].clone()
-            ex_s[:, 2:6, sc0:sc0 + 240] += blocks
-            ex_n = _slot_drop_period(extra, k)
-        # dl_slot_batch_mimo opens phy.dl.code and phy.dl.grid itself.
-        g_n = sp.unshard(sp.dl_slot_batch_mimo(
-            pay_norm, rntis, cell_n, extra_rows=ex_n, return_grid=True,
-            device=dev, mesh=mesh))
-        g_s = sp.unshard(sp.dl_slot_batch_mimo(
-            pay_ssb, rntis, cell_s, extra_rows=ex_s, return_grid=True,
-            device=dev, mesh=mesh))
-        with l1_tracer.span("phy.dl.grid"):
-            grid = _slot_merge_period(g_s, g_n, k, s_total)
-        t = fc.timing
-        with l1_tracer.span("phy.dl.ofdm"):
-            td = _tx_amplitude(ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft), fc)
-        return sp.shard(td, mesh, ())
+        return STEP_GRAPHS(
+            "gnb_dl_slot_batch_mimo",
+            lambda *x: _dl_slot_batch_mimo(*x, fc, s_total, device, mesh),
+            (pay_norm, pay_ssb, dci, pbch), device, mesh, fc=fc, s_total=s_total)
+
+
+def _dl_slot_batch_mimo(pay_norm, pay_ssb, dci, pbch, fc: FullCellConfig, s_total: int,
+                        device, mesh) -> torch.Tensor:
+    """``gnb_dl_slot_batch_mimo``'s body, eager."""
+    dev = resolve_device(device)
+    dci, pbch = (sp.unshard(sp._on(x, dev)) for x in (dci, pbch))
+    cell_n, cell_s = fc.dl_cell_mimo(), fc.dl_cell_ssb_mimo()
+    if fc.ssb_slots(s_total)[0] != 0:
+        raise ValueError("the SSB occasions must start at slot 0")
+    k = fc.ssb_period
+    rntis = _rntis(fc, dev)
+    with l1_tracer.span("phy.dl.control"):
+        extra = _dl_control_rows(dci, fc, s_total)
+        blocks = ssb_blocks(pbch, fc, s_total)
+    with l1_tracer.span("phy.dl.grid"):
+        sc0 = fc.ssb_first_subcarrier
+        ex_s = extra[0::k].clone()
+        ex_s[:, 2:6, sc0:sc0 + 240] += blocks
+        ex_n = _slot_drop_period(extra, k)
+    # dl_slot_batch_mimo opens phy.dl.code and phy.dl.grid itself.
+    g_n = sp.unshard(sp.dl_slot_batch_mimo(
+        pay_norm, rntis, cell_n, extra_rows=ex_n, return_grid=True,
+        device=dev, mesh=mesh))
+    g_s = sp.unshard(sp.dl_slot_batch_mimo(
+        pay_ssb, rntis, cell_s, extra_rows=ex_s, return_grid=True,
+        device=dev, mesh=mesh))
+    with l1_tracer.span("phy.dl.grid"):
+        grid = _slot_merge_period(g_s, g_n, k, s_total)
+    t = fc.timing
+    with l1_tracer.span("phy.dl.ofdm"):
+        td = _tx_amplitude(ofdm.modulate_slot(grid, t, scale=1.0 / t.nfft), fc)
+    return sp.shard(td, mesh, ())
 
 
 def gnb_ul_slot_batch_mimo(rx, fc: FullCellConfig, s_total: int,
@@ -876,20 +912,32 @@ def gnb_ul_slot_batch_mimo(rx, fc: FullCellConfig, s_total: int,
     antennas are demodulated once; PUSCH takes the LxP front, PUCCH F1/F2,
     SRS and PRACH antenna 0.  On a mesh as ``gnb_ul_slot_batch``."""
     with l1_tracer.span("phy.ul"):
-        cell = fc.ul_cell()
-        dev = resolve_device(device)
-        rx = sp.unshard(sp._on(rx, dev))
-        t = cell.timing
-        s, p_rx = rx.shape[:2]
-        with l1_tracer.span("phy.ul.ofdm"):
-            rx_grid = ofdm.demodulate_slot(rx.reshape(s * p_rx, -1), t, scale=1.0)
-            rx_grid = rx_grid.reshape(s, p_rx, t.nsymb, t.nof_subc)
-        with l1_tracer.span("phy.ul.front"):
-            llr, nv, cfo = sp._ul_front_mimo(None, _rntis(fc, dev), cell,
-                                             rx_grid=rx_grid, mesh=mesh)
-        payload, tb_ok, soft = sp._ul_back(llr, cell, 0, num_iters,
-                                           sp._on(soft_in, dev),
-                                           sp._on(new_data, dev),
-                                           early_stop=early_stop, mesh=mesh)
-        return _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid[:, 0],
-                           rx[:, 0], fc, s_total, soft_flat, mesh)
+        return STEP_GRAPHS(
+            "gnb_ul_slot_batch_mimo",
+            lambda *x: _ul_slot_batch_mimo(*x, fc, s_total, num_iters, soft_flat,
+                                           early_stop, device, mesh),
+            (rx, soft_in, new_data), device, mesh, fc=fc, s_total=s_total,
+            num_iters=num_iters, soft_flat=soft_flat, early_stop=early_stop)
+
+
+def _ul_slot_batch_mimo(rx, soft_in, new_data, fc: FullCellConfig, s_total: int,
+                        num_iters: int, soft_flat: bool, early_stop: bool, device,
+                        mesh) -> dict:
+    """``gnb_ul_slot_batch_mimo``'s body, eager."""
+    cell = fc.ul_cell()
+    dev = resolve_device(device)
+    rx = sp.unshard(sp._on(rx, dev))
+    t = cell.timing
+    s, p_rx = rx.shape[:2]
+    with l1_tracer.span("phy.ul.ofdm"):
+        rx_grid = ofdm.demodulate_slot(rx.reshape(s * p_rx, -1), t, scale=1.0)
+        rx_grid = rx_grid.reshape(s, p_rx, t.nsymb, t.nof_subc)
+    with l1_tracer.span("phy.ul.front"):
+        llr, nv, cfo = sp._ul_front_mimo(None, _rntis(fc, dev), cell,
+                                         rx_grid=rx_grid, mesh=mesh)
+    payload, tb_ok, soft = sp._ul_back(llr, cell, 0, num_iters,
+                                       sp._on(soft_in, dev),
+                                       sp._on(new_data, dev),
+                                       early_stop=early_stop, mesh=mesh)
+    return _ul_results(payload, tb_ok, nv, cfo, soft, rx_grid[:, 0],
+                       rx[:, 0], fc, s_total, soft_flat, mesh)

@@ -19,7 +19,11 @@ microseconds a call whether or not a profiler records.
 ``builds`` counts the program's cached table builders: ``cached_build`` in
 place of ``functools.lru_cache(maxsize=None)`` records each miss and its
 exclusive host seconds (its own, less the nested builders') under the
-builder's name; the CUDA build adds nvcc's seconds as ``nvcc.<kernel>``.
+builder's name; the CUDA build adds nvcc's seconds as ``nvcc.<kernel>``,
+and a full-slot entry point's graph capture its seconds as
+``graph.<entry point>`` (``parallel/step_graph.py``).  ``graph_calls``
+counts how each call of those entry points ran: captured, replayed, or
+eager and why.
 """
 
 from __future__ import annotations
@@ -154,6 +158,30 @@ class BuildCounter:
             self._counts.clear()
 
 
+class CallCounter:
+    """Calls of the full-slot entry points by how they ran, per entry point:
+    ``capture`` (captured, then replayed), ``replay``, or eager by reason
+    (``step_graph.EAGER``)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: dict[str, dict[str, int]] = {}
+
+    def count(self, entry: str, how: str) -> None:
+        with self._lock:
+            c = self._counts.setdefault(entry, {})
+            c[how] = c.get(how, 0) + 1
+
+    def snapshot(self) -> dict[str, dict[str, int]]:
+        """{entry point: {how: calls}} so far."""
+        with self._lock:
+            return {k: dict(v) for k, v in self._counts.items()}
+
+    def clear(self):
+        with self._lock:
+            self._counts.clear()
+
+
 def cached_build(fn):
     """``functools.lru_cache(maxsize=None)`` of ``fn`` (``cache_info`` and
     ``cache_clear`` included) whose misses ``builds`` counts under the
@@ -171,3 +199,4 @@ def cached_build(fn):
 # Module-level tracers mirroring the reference's l1_tracer / l2_tracer.
 l1_tracer = EventTracer()
 builds = BuildCounter()
+graph_calls = CallCounter()
