@@ -70,11 +70,25 @@ Phases (any failure exits non-zero):
  10. qam256_full_cell — bench.py's --qam256 point: 256QAM r682.5/1024 both
                ways, ul_delay_spread_us = 1.0 (the TA + smoothing estimator),
                33 dB; as full_cell.
- 10a. bench_modes — bench.py --clean, --no-csirs and --qam256 --chest=ls
+ 10a. tdd100_full_cell — the benchmark's 100 MHz n78 TDD cell
+               (nr100_tdd_batch1000: TDD_CONFIG, mu = 1, 273 PRB, srsRAN's
+               10/6/8/3/0 pattern) through phybench.chain's inputs and chained
+               step at TDD_SLOTS = 1000 air slots: the first step eager, with
+               its air slots by kind (utils.tracing.air_slots) and its hand
+               kernel launches (two of each PDSCH kernel, one pusch_demap, one
+               K1 call and its group exit's rounds) checked, every TB exact and
+               preamble 7 alone on each two-slot PRACH occasion; 3 warm steps,
+               then the counts reset and TDD_STEPS timed steps, each a replay
+               of both calls with the same air slots and launches; ms per step,
+               x real time, peak memory; the last step held to the frozen
+               reference within the configuration's limits (phybench.check);
+               the device profile; K1 on the step's 3600 codeblocks at BG1
+               Zc 384 with the other batched paths (phase 11).
+ 10b. bench_modes — bench.py --clean, --no-csirs and --qam256 --chest=ls
                (the modes no other phase times) through the bench module's
                main in this process at S = 256, 30 steps: bench.py's asserts,
                its JSON line, K1 once per step.
- 10b. streaming — bench.py --streaming=S at S = 8, 16, 32, 64, depth 2, 400
+ 10c. streaming — bench.py --streaming=S at S = 8, 16, 32, 64, depth 2, 400
                batches each (bench_streaming: the full gNB slot with the HARQ
                carry, batch k+1 issued before the host waits on batch k's
                CUDA event): sustained x real time, p50 / p99 latency from
@@ -210,7 +224,9 @@ Between phases 1 and 2:
                replace, run on the card (segment_tb -> encoder.encode ->
                rate_match; scramble_bits -> modulate on CUDA tensors), at the
                benchmark cells' shapes: the normal and the SSB slots of the
-               SISO step (S = 1024) and of the 2x2 step (S = 512).  Equal
+               SISO step (S = 1024), of the 2x2 step (S = 512) and of the
+               100 MHz TDD step (S = 1000 air slots: 550 normal and 50 SSB
+               slots, TBS 23040 at Zc 352).  Equal
                bits and symbols; each one's ms per call, the plain chain's,
                and the byte bound (int8 in, int8 or complex64 out, at
                HBM_BYTES_PER_S).
@@ -219,7 +235,9 @@ Between phases 1 and 2:
                pusch_demap) against the plain chain it replaces, run on the
                card (pusch_front.demap_plain on CUDA tensors), on the inputs
                the UL front hands it at the benchmark cells' UL shapes (SISO
-               S = 1024, 2x2 S = 512; 25 dB data-plane waveforms): equal
+               S = 1024, 2x2 S = 512, and the 100 MHz TDD step's 300 UL
+               slots over 273 PRB with four 64-PRB UE spans; 25 dB
+               data-plane waveforms): equal
                int8 LLRs; its ms per call, the plain chain's, and the byte
                bound (REs, estimate or weights, derotation and inits in, one
                int8 per LLR out, at HBM_BYTES_PER_S).
@@ -260,6 +278,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import pathlib
 import re
 import shutil
 import subprocess
@@ -269,6 +288,13 @@ import time
 SEED = 1234
 SNR_DB = 25.0
 S_BATCH = 256            # bench.py's --sbatch default
+# The 100 MHz n78 TDD carrier (mu = 1, 273 PRB, srsRAN's 10/6/8/3/0 slot
+# pattern) as the benchmark's cell nr100_tdd_batch1000 runs it: its
+# configuration file, 1000 air slots a step (600 DL, 100 special and 300 UL
+# slots; 3600 codeblocks at BG1 Zc 384), the steps timed.
+TDD_CONFIG = "phybench/configs/nr100_n78_tdd_4ue.json"
+TDD_SLOTS = 1000
+TDD_STEPS = 8
 # The bench modes that no phase below times, run through the bench module's
 # main (phase bench_modes); the others print bench.py's line from the phase
 # that times them.
@@ -394,7 +420,15 @@ def awgn(td, snr_db, gen):
     return torch.complex(real, imag) * sigma
 
 
-def phase_pdsch_code(sp, fcm, dev) -> dict:
+def cell_steps(fcm, tdd_fc):
+    """(tag, configuration, air slots a step) of the benchmark's cells: the
+    20 MHz SISO and 2x2 cells, and the 100 MHz TDD cell."""
+    return (("siso", fcm.FullCellConfig(), 1024),
+            ("mimo2x2", fcm.FullCellConfig(n_layers=2), 512),
+            ("tdd100", tdd_fc, TDD_SLOTS))
+
+
+def phase_pdsch_code(sp, fcm, dev, tdd_fc) -> dict:
     """Phase 1a: the PDSCH kernels against the plain chain on the card at
     the cells' shapes; {path: its row}."""
     import torch
@@ -402,8 +436,7 @@ def phase_pdsch_code(sp, fcm, dev) -> dict:
     from srsran_edgeric_5g_tpu_torch.ops.ldpc import encoder, rate_match, segmenter
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
     rows = {}
-    for tag, fc, s in (("siso", fcm.FullCellConfig(), 1024),
-                       ("mimo2x2", fcm.FullCellConfig(n_layers=2), 512)):
+    for tag, fc, s in cell_steps(fcm, tdd_fc):
         mimo = fc.n_layers > 1
         parts = {"normal": (fc.dl_cell_mimo() if mimo else fc.dl_cell(),
                             len(fc.norm_slots(s))),
@@ -443,15 +476,15 @@ def phase_pdsch_code(sp, fcm, dev) -> dict:
     return rows
 
 
-def phase_pusch_front(sp, fcm, dev) -> dict:
+def phase_pusch_front(sp, fcm, dev, tdd_fc) -> dict:
     """Phase 1b: pusch_demap against the plain chain on the card at the
-    cells' UL shapes; {path: its row}."""
+    cells' UL shapes (a step's UL slots); {path: its row}."""
     import torch
     from srsran_edgeric_5g_tpu_torch.ops import pusch_front
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
     rows = {}
-    for tag, fc, s in (("siso", fcm.FullCellConfig(), 1024),
-                       ("mimo2x2", fcm.FullCellConfig(n_layers=2), 512)):
+    for tag, fc, s_air in cell_steps(fcm, tdd_fc):
+        s = len(fc.ul_slots(s_air))
         cell = fc.ul_cell()
         rntis = fcm._rntis(fc, dev)
         pay = torch.randint(0, 2, (s, cell.nof_ue, cell.derived_tbs()), generator=gen,
@@ -486,7 +519,7 @@ def phase_pusch_front(sp, fcm, dev) -> dict:
                    ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 5),
                    front_ms=cuda_ms(front, 10),
                    bound_ms=(n_in + out.numel()) / HBM_BYTES_PER_S * 1e3)
-        emit("pusch_front", path=tag, **row)
+        emit("pusch_front", path=tag, ul_slots=s, **row)
         rows[tag] = row
     return rows
 
@@ -812,7 +845,8 @@ def profile_summary(prof, n_prof: int, wall_ms: float) -> dict:
 
 def graph_calls_between(before: dict, after: dict) -> dict:
     """{entry point: {how: calls}} made between two snapshots of
-    ``utils.tracing.graph_calls``."""
+    ``utils.tracing.graph_calls`` (or {entry point: {kind: slots}} of
+    ``utils.tracing.air_slots``)."""
     out = {}
     for entry, counts in after.items():
         made = {k: n - before.get(entry, {}).get(k, 0) for k, n in counts.items()}
@@ -966,6 +1000,112 @@ def phase_full_cell(fcm, sp, pb, cuda_build, dec, dev, argv, tag):
          **{k: cuda_ms(f, 5) for k, f in stages.items()})
 
     emit(f"{tag}_device_profile", **device_profile(chain, 3, slot_ms * s))
+    return dict(decoder_input=full, launches=launches, bg=seg.bg, zc=seg.zc)
+
+
+def phase_tdd_cell(fcm, sp, cuda_build, dec, dev, config, tag):
+    """The 100 MHz n78 TDD carrier through the benchmark's chained step
+    (phybench.chain: the inputs drawn from a seed, the SISO gNB entry points
+    at TDD_SLOTS air slots): the first step eager, the warm steps capturing,
+    then TDD_STEPS timed steps that must all be replays, with the air slots
+    (utils.tracing.air_slots) and the kernel launches counted per step, the
+    counts reset just before the timed run; every TB exact, preamble 7 alone
+    on every two-slot PRACH occasion, and the last step within the
+    configuration's limits of the frozen reference (phybench.check).  Phases
+    ``<tag>``, ``<tag>_graph_calls``, ``<tag>_e2e``, ``<tag>_check`` and
+    ``<tag>_device_profile``."""
+    import torch
+    from phybench import check as bcheck
+    from phybench.chain import Chain, draw_inputs
+    from srsran_edgeric_5g_tpu_torch.ops import ofdm, pdsch_code, pusch_front
+    from srsran_edgeric_5g_tpu_torch.utils import tracing
+    s = TDD_SLOTS
+    x = draw_inputs(config, s, SNR_DB, SEED + 23, dev)
+    chain = Chain(fcm, config, x, s, dev)
+    fc, u = chain.fc, chain.fc.nof_ue
+    dl, ul = chain.gnb_dl.__name__, chain.gnb_ul.__name__
+    n_dl, n_sp, n_ul = (len(f(s)) for f in (fc.dl_slots, fc.special_slots, fc.ul_slots))
+    n_prach = len(fc.prach_slots(s))
+    per_step = {dl: {"dl": n_dl, "special": n_sp, "silent": s - n_dl - n_sp},
+                ul: {"ul": n_ul, "silent": s - n_ul, "prach_span": n_prach * fc.prach_span()}}
+
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    calls0, slots0 = tracing.graph_calls.snapshot(), tracing.air_slots.snapshot()
+    t0 = time.perf_counter()
+    res = chain()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: n for k, n in cuda_build.LAUNCHES.items() if n}
+    first_calls = graph_calls_between(calls0, tracing.graph_calls.snapshot())
+    check(first_calls == {dl: {"first_call": 1}, ul: {"first_call": 1}},
+          f"{tag}: the first step ran {first_calls}")
+    slots = graph_calls_between(slots0, tracing.air_slots.snapshot())
+    check(slots == per_step, f"{tag}: air slots of a step {slots}, not {per_step}")
+    # One launch of each PDSCH kernel for the normal and for the SSB slots,
+    # one pusch_demap and one K1 call for the UL slots.
+    hand = {pdsch_code.KERNEL_ENCODE: 2, pdsch_code.KERNEL_MODULATE: 2,
+            pusch_front.KERNEL: 1, dec.KERNEL: 1}
+    check(all(launches.get(k, 0) == n for k, n in hand.items()),
+          f"{tag}: kernel launches of a step {launches}")
+    seg, rm = sp._plans(fc.ul_cell(), 0)
+    check(tuple(chain.td.shape) == (s, fc.timing.cp.total)
+          and tuple(res["tb_ok"].shape) == (n_ul, u) and bool(res["tb_ok"].all()),
+          f"{tag}: DL samples {tuple(chain.td.shape)}, tb_ok {tuple(res['tb_ok'].shape)}")
+    check([d.nonzero().flatten().tolist() for d in res["prach_detected"]]
+          == [[7]] * n_prach, f"{tag}: PRACH detections")
+    emit(tag, cell=f"{fc.nof_prb}PRB nfft{fc.nfft} mu{fc.mu} tdd "
+         f"{fc.tdd_period}/{fc.tdd_dl_slots}/{fc.tdd_dl_symbols}/{fc.tdd_ul_slots}/"
+         f"{fc.tdd_ul_symbols} {u}UE {fc.ul_modulation} r{fc.ul_target_rate:.4g}",
+         slots=s, snr_db=SNR_DB, tbs_ul=fc.ul_cell().derived_tbs(),
+         tbs_dl=fc.dl_cell().derived_tbs(), codeblocks=n_ul * u * seg.c, bg=seg.bg,
+         zc=seg.zc, n_cb=rm.n_cb, first_step_seconds=first_s,
+         launches_per_step=launches, hand_kernel_launches_per_step=sum(launches.values()),
+         air_slots_per_step=slots, tb_ok=int(res["tb_ok"].sum()),
+         prach_occasions=n_prach, prach_span=fc.prach_span())
+
+    for _ in range(3):          # the keys' eager calls and captures
+        chain()
+    torch.cuda.synchronize()
+    warm_calls = tracing.graph_calls.snapshot()
+    slots0 = tracing.air_slots.snapshot()
+    cuda_build.reset_launches()
+    chain.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(chain, TDD_STEPS, warmup=0)
+    timed_calls = graph_calls_between(warm_calls, tracing.graph_calls.snapshot())
+    check(timed_calls == {dl: {"replay": TDD_STEPS}, ul: {"replay": TDD_STEPS}},
+          f"{tag}: the timed steps did not all replay: {timed_calls}")
+    timed_slots = graph_calls_between(slots0, tracing.air_slots.snapshot())
+    check(timed_slots == {e: {k: n * TDD_STEPS for k, n in c.items()}
+                          for e, c in per_step.items()},
+          f"{tag}: air slots of the timed steps {timed_slots}")
+    timed_launches = {k: n for k, n in cuda_build.LAUNCHES.items() if n}
+    check(timed_launches == {k: n * TDD_STEPS for k, n in launches.items()},
+          f"{tag}: launches of the timed steps {timed_launches}, per step {launches}")
+    bad = int(chain.bad)
+    check(bad == 0, f"{tag}: {bad} TBs of the timed steps failed or differ")
+    emit(f"{tag}_graph_calls", warm=graph_calls_between(calls0, warm_calls),
+         timed=timed_calls)
+    emit(f"{tag}_e2e", steps=TDD_STEPS, slots_per_step=s, ms_per_step=step_ms,
+         x_real_time=s * (1.0 / (1 << fc.mu)) / step_ms,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         launches_per_step=launches)
+
+    ref_td, ref_res = bcheck.reference_step(config, x, s, chain.last_flip(), dev)
+    numbers = bcheck.compare(chain.td, chain.res, ref_td, ref_res, bad)
+    emit(f"{tag}_check", **bcheck.report(numbers, config["limits"]))
+    check(bcheck.judge(numbers, config["limits"]),
+          f"{tag}: the last step is not within the limits of the reference: {numbers}")
+    emit(f"{tag}_device_profile", **device_profile(chain, 3, step_ms))
+
+    # K1's input of the step: the UL slots' front as the UL call runs it.
+    t = fc.timing
+    rx = fcm._ul_view(x["ul"] + x["noise"] * chain.last_flip(), fc, s)
+    grid = ofdm.demodulate_slot(rx, t, scale=1.0).reshape(-1, t.nsymb, t.nof_subc)
+    llr = sp._ul_front(None, fcm._rntis(fc, dev), fc.ul_cell(), rx_grid=grid)[0]
+    full = sp._decoder_input(llr.reshape(n_ul * u, -1), fc.ul_cell())
+    check(tuple(full.shape[:1]) == (n_ul * u * seg.c,), f"{tag}: decoder input {full.shape}")
     return dict(decoder_input=full, launches=launches, bg=seg.bg, zc=seg.zc)
 
 
@@ -3125,6 +3265,7 @@ def main() -> int:
         from srsran_edgeric_5g_tpu_torch.ops.ldpc import decoder_cuda, encoder
         from srsran_edgeric_5g_tpu_torch.parallel import full_cell as fcm
         from srsran_edgeric_5g_tpu_torch.parallel import slot_pipeline as sp
+        from phybench.chain import full_cell_config
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 2
@@ -3143,8 +3284,11 @@ def main() -> int:
          sass=[sass_summary(str(cuda_build.build(n))) for n in cuda_build.KERNELS],
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    pdsch = phase_pdsch_code(sp, fcm, dev)
-    pusch = phase_pusch_front(sp, fcm, dev)
+    tdd_config = json.loads((pathlib.Path(__file__).resolve().parent
+                             / TDD_CONFIG).read_text())
+    tdd_fc = full_cell_config(fcm.FullCellConfig, tdd_config)
+    pdsch = phase_pdsch_code(sp, fcm, dev, tdd_fc)
+    pusch = phase_pusch_front(sp, fcm, dev, tdd_fc)
     ctx = phase_slice(sp, cuda_build, dev, S_BATCH)
     check(ctx["launches"].get(decoder_cuda.KERNEL, 0) > 0,
           f"main path launched no {decoder_cuda.KERNEL} kernel")
@@ -3168,6 +3312,10 @@ def main() -> int:
         "mimo_data_plane": phase_mimo_data_plane(sp, pb, cuda_build, decoder_cuda, dev, 4),
         "qam256_full_cell": phase_full_cell(fcm, sp, pb, cuda_build, decoder_cuda, dev,
                                             ["--qam256"], "qam256_full_cell"),
+        # The benchmark's 100 MHz n78 TDD cell: K1 at BG1 Zc 384 on its
+        # 3600 codeblocks a step.
+        "tdd100_full_cell": phase_tdd_cell(fcm, sp, cuda_build, decoder_cuda, dev,
+                                           tdd_config, "tdd100_full_cell"),
     }
     paths["multi_cell"] = mc
     # bench.py's remaining modes, then its streaming mode (K1 on the

@@ -23,7 +23,10 @@ builder's name; the CUDA build adds nvcc's seconds as ``nvcc.<kernel>``,
 and a full-slot entry point's graph capture its seconds as
 ``graph.<entry point>`` (``parallel/step_graph.py``).  ``graph_calls``
 counts how each call of those entry points ran: captured, replayed, or
-eager and why.
+eager and why.  ``air_slots`` counts, under a TDD slot pattern, the air
+slots that each full-slot entry point's calls covered by kind: ``dl``,
+``special``, ``ul``, ``silent`` (neither sent nor read by that direction)
+and ``prach_span`` (the slots that the PRACH occasions span).
 """
 
 from __future__ import annotations
@@ -159,21 +162,22 @@ class BuildCounter:
 
 
 class CallCounter:
-    """Calls of the full-slot entry points by how they ran, per entry point:
-    ``capture`` (captured, then replayed), ``replay``, or eager by reason
-    (``step_graph.EAGER``)."""
+    """Counts per entry point and kind: for ``graph_calls`` the full-slot
+    entry points' calls by how they ran, ``capture`` (captured, then
+    replayed), ``replay``, or eager by reason (``step_graph.EAGER``); for
+    ``air_slots`` their air slots by kind."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counts: dict[str, dict[str, int]] = {}
 
-    def count(self, entry: str, how: str) -> None:
+    def count(self, entry: str, how: str, n: int = 1) -> None:
         with self._lock:
             c = self._counts.setdefault(entry, {})
-            c[how] = c.get(how, 0) + 1
+            c[how] = c.get(how, 0) + n
 
     def snapshot(self) -> dict[str, dict[str, int]]:
-        """{entry point: {how: calls}} so far."""
+        """{entry point: {kind: count}} so far."""
         with self._lock:
             return {k: dict(v) for k, v in self._counts.items()}
 
@@ -200,3 +204,4 @@ def cached_build(fn):
 l1_tracer = EventTracer()
 builds = BuildCounter()
 graph_calls = CallCounter()
+air_slots = CallCounter()

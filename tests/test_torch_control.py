@@ -216,9 +216,11 @@ def test_prach_roots_and_detection(main_cell):
     rng = np.random.default_rng(6)
     td = np.stack([jfc.prach_occasion_td(jc, p, delay=d, amplitude=1.0)
                    for p, d in ((7, 24), (40, 3), (63, 60))])
-    np.testing.assert_array_equal(
-        np.stack([tfc.prach_occasion_td(tc, p, delay=d, amplitude=1.0)
-                  for p, d in ((7, 24), (40, 3), (63, 60))]), td)
+    # The port's occasion spans prach_span(delay) slots: one at these rates.
+    occ = [tfc.prach_occasion_td(tc, p, delay=d, amplitude=1.0)
+           for p, d in ((7, 24), (40, 3), (63, 60))]
+    assert all(o.shape == (1, td.shape[-1]) for o in occ)
+    np.testing.assert_array_equal(np.stack([o[0] for o in occ]), td)
     win = (td + 0.3 * (rng.normal(size=td.shape) + 1j * rng.normal(size=td.shape))
            ).astype(np.complex64)[:, :info.cp_samples + info.dft_size]
     fj = np.asarray(jprach.ofdm_demodulate_prach(jnp.asarray(win), jc.prach_info()))

@@ -381,7 +381,14 @@ def test_default_4x4_full_cell_refused_by_both():
 def test_config_conversion_carries_layers_and_delay_spread():
     jc = dataclasses.replace(small_fc(2), ul_delay_spread_us=1.0)
     tc = convert.full_cell_from_dict(dataclasses.asdict(jc))
-    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    # The port's config has the JAX package's fields and the TDD slot
+    # pattern's, which default to paired spectrum.
+    want = dataclasses.asdict(jc)
+    got = dataclasses.asdict(tc)
+    assert {k: got[k] for k in want} == want
+    assert {k: v for k, v in got.items() if k not in want} == {
+        "tdd_period": 0, "tdd_dl_slots": 0, "tdd_dl_symbols": 0,
+        "tdd_ul_slots": 0, "tdd_ul_symbols": 0}
     for jcell, tcell in ((jc.ul_cell(), tc.ul_cell()),
                          (jc.dl_cell_mimo(), tc.dl_cell_mimo()),
                          (jc.dl_cell_ssb_mimo(), tc.dl_cell_ssb_mimo())):
